@@ -1,15 +1,21 @@
-"""Build-once cache of induced-RCM-permuted hierarchy operators for an
-icosphere order: /tmp/ico{order}_ops/{A<l>,P<l>}.npz. Probes iterate on
-layout/cost experiments without re-paying the hierarchy build."""
+"""Build-once cache of the screened-Poisson hierarchy operators
+A = M - 0.01 L of an icosphere order (SSP prolongations + Galerkin
+coarse operators): <checkout>/.ops_cache/ico{order}/{A<l>,P<l>}.npz, so
+repeated benchmark runs skip the host hierarchy build.
+
+Usage: python benchmarks/ico_ops_cache.py [order=7]
+"""
 import os
 import sys
 import time
 
 import scipy.sparse as sp
 
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
 
 def ops_dir(order: int) -> str:
-    return f"/tmp/ico{order}_ops"
+    return os.path.join(ROOT, ".ops_cache", f"ico{order}")
 
 
 def load_ops(order: int):
@@ -30,14 +36,9 @@ def load_ops(order: int):
 
 
 def build_cache(order: int):
-    sys.path.insert(0, ".")
+    sys.path.insert(0, ROOT)
     from surface_multigrid_code_tpu.ops.laplacian import cotmatrix, massmatrix
     from surface_multigrid_code_tpu.solver.hierarchy import mg_precompute
-    from surface_multigrid_code_tpu.solver.ordering import (
-        finest_rcm,
-        induced_orderings,
-        permute_hierarchy,
-    )
     from surface_multigrid_code_tpu.utils.synthetic import icosphere
 
     t0 = time.time()
@@ -48,8 +49,6 @@ def build_cache(order: int):
     Ps = [mg[lv].P_full.tocsr() for lv in range(1, len(mg))]
     for P in Ps:
         As.append((P.T @ As[-1] @ P).tocsr())
-    perms = induced_orderings(finest_rcm(As[0]), Ps)
-    As, Ps = permute_hierarchy(As, Ps, perms)
     d = ops_dir(order)
     os.makedirs(d, exist_ok=True)
     for lv, M in enumerate(As):
@@ -57,7 +56,7 @@ def build_cache(order: int):
     for lv, M in enumerate(Ps):
         sp.save_npz(f"{d}/P{lv}.npz", M.tocsr())
     print(f"cached icosphere({order}) ops in {d} "
-          f"({time.time()-t0:.0f}s)", flush=True)
+          f"({time.time()-t0:.0f}s)", file=sys.stderr, flush=True)
 
 
 if __name__ == "__main__":

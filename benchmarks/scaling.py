@@ -5,11 +5,10 @@ Reports, for each device count D:
     the communication/computation ratio of the domain decomposition;
   - solve wall time and residual trajectory (must be identical across D).
 
-On this container only one real TPU chip is reachable, so TPU rows are
-D=1; CPU rows use --xla_force_host_platform_device_count to fake a mesh
+On the CPU, --xla_force_host_platform_device_count fakes a mesh
 (collective correctness + comm-volume accounting; not a hardware scaling
-measurement).  On a real pod slice the same script measures weak/strong
-scaling (BASELINE.md target: >=70% weak-scaling efficiency at 2+ hosts).
+measurement).  On a host with several GPUs the same script measures
+strong scaling over its cards (ROADMAP S5).
 
 Usage:  python benchmarks/scaling.py [--depth 6] [--devices 1 2 4 8]
 """

@@ -1,4 +1,4 @@
-"""Smoother-trajectory parity: reference sequential-GS vs TPU smoothers.
+"""Smoother-trajectory parity: reference sequential-GS vs device smoothers.
 
 The reference cannot be built here (libigl submodule not checked out, no
 Eigen, no network), so `solver/host_reference.py` reproduces its V-cycle
@@ -10,7 +10,8 @@ tol 1e-10) problems through that mirror and through the device solver
 with multicolor-GS, and prints both r_his so the cycle-count comparison
 is a recorded artifact (SURVEY.md §7 hard part 3).
 
-Usage: python benchmarks/smoother_parity.py   (CPU or TPU)
+Usage: python benchmarks/smoother_parity.py   (f64 hierarchy under
+JAX_ENABLE_X64=1, else f32)
 """
 
 import json
@@ -55,8 +56,7 @@ def run_case(name, mesh, tol, constrained_boundary):
     z0 = rng.uniform(-1, 1, n) if not constrained_boundary else np.zeros(n)
 
     cfg = SolveConfig(smoother=SmootherType.MULTICOLOR_GS)
-    on_tpu = jax.devices()[0].platform != "cpu"
-    dtype = jnp.float32 if on_tpu else jnp.float64
+    dtype = jnp.float64 if jax.config.jax_enable_x64 else jnp.float32
     data = min_quad_with_fixed_mg_precompute(A, b, mg, cfg=cfg, dtype=dtype)
 
     ref = SequentialGSReference(

@@ -25,14 +25,15 @@ from surface_multigrid_code_tpu.utils.paths import mesh_path
 
 def main():
     # Precision policy (DESIGN.md): tol 1e-10 is below the f32 residual
-    # floor.  On CPU the conftest-style x64 default gives a plain f64
-    # hierarchy; on TPU we enable x64 (double-word emulated f64) but keep
-    # the V-cycle hierarchy in f32 and let the solve auto-engage
+    # floor.  On CPU the hierarchy is plain f64; on an accelerator the
+    # V-cycle hierarchy stays f32 and the solve auto-engages f64
     # mixed-precision iterative refinement (solver/vcycle.py:solve_loop_ir).
+    # Whether native f64 throughout is the better choice on the GPU is
+    # still open (ROADMAP W3).
     import jax
 
     jax.config.update("jax_enable_x64", True)
-    on_tpu = jax.devices()[0].platform != "cpu"
+    on_accelerator = jax.devices()[0].platform != "cpu"
 
     V, F = read_obj(mesh_path("bunny"))
     V_known, _ = read_obj(mesh_path("hilbert_cube_known"))
@@ -54,7 +55,7 @@ def main():
     import jax.numpy as jnp
 
     data = min_quad_with_fixed_mg_precompute(
-        A, b, mg, dtype=jnp.float32 if on_tpu else jnp.float64
+        A, b, mg, dtype=jnp.float32 if on_accelerator else jnp.float64
     )
     z, r_his, converged = min_quad_with_fixed_mg_solve(
         data, B, known_val=bval, z0=z0, tolerance=1e-10

@@ -1,19 +1,16 @@
-"""surface_multigrid_code_tpu — TPU-native surface multigrid framework.
+"""surface_multigrid_code_tpu — accelerator-native surface multigrid.
 
 A from-scratch JAX/XLA implementation of the capabilities of
 "Surface Multigrid via Intrinsic Prolongation" (Liu, Zhang, Ben-Chen,
-Jacobson; SIGGRAPH 2021), re-designed TPU-first:
+Jacobson; SIGGRAPH 2021), designed for a data-parallel accelerator:
 
 - Host precompute (offline): SSP decimation with successive
   self-parameterization, emitting flat arrays (CSR/ELL prolongations,
   flattened collapse logs).
 - Device runtime (online): jitted Galerkin multigrid V-cycles with
-  multi-color Gauss-Seidel / weighted-Jacobi smoothing, a windowed-ELL
-  Pallas SpMV kernel on the single-device smoother hot path (ops/well.py;
-  RCM row blocks + in-kernel lane gathers — see DESIGN.md "The
-  windowed-ELL Pallas kernel" for measurements; the sharded paths use
-  the XLA ELL gather), dense coarse solves, and shard_map-based
-  multi-chip row partitioning.
+  multi-color Gauss-Seidel / Jacobi / Chebyshev smoothing on ELL and
+  3x3-block (BSR) operators left to XLA, dense coarse solves, and
+  shard_map-based multi-device row partitioning.
 
 Reference behavior is documented against HTDerekLiu/surface_multigrid_code
 (file:line cites in docstrings); the implementation is new.

@@ -36,7 +36,7 @@ class SmootherType(str, enum.Enum):
     """Smoother for the V-cycle relaxation steps.
 
     The reference uses sequential in-place Gauss-Seidel
-    (src/mg_VCycle.cpp:146-177). On TPU the idiomatic equivalents are
+    (src/mg_VCycle.cpp:146-177). The data-parallel equivalents are
     multi-color Gauss-Seidel (same trajectory family, parallel within a
     color) or damped Jacobi.
     """
@@ -70,10 +70,6 @@ class SolveConfig:
     jacobi_weight: float = 2.0 / 3.0
     coarsest_diag_shift: float = 1e-12
     prune_threshold: float = 1e-15
-    # Padded-flow fused V-cycle on windowed (well=True) hierarchies
-    # (solver/vcycle._vcycle_tiled); False forces the unfused path —
-    # an A/B hook, trajectories are identical.
-    tiled_vcycle: bool = True
     # Chebyshev lam_max power-iteration count in refreshed solvers
     # (solver/bsr.py; 12 + 1.1x margin is the validated default — the
     # knob exists for A/B experiments, NOT production tuning: an

@@ -75,8 +75,8 @@ class BalloonNewtonSolver:
         self.psd_project = bool(psd_project)
 
         # Chebyshev default: interleaved block patterns need ~21 GS colors
-        # (vertex graph x K3), making colored sweeps scatter-heavy on TPU;
-        # the SpMV-only Chebyshev recurrence is ~1000x faster per cycle
+        # (vertex graph x K3), making colored sweeps scatter-heavy; the
+        # Chebyshev recurrence is one SpMV + axpys per step
         cfg = cfg or SolveConfig(smoother=SmootherType.CHEBYSHEV)
         n3 = M.shape[0]
         rows, cols = shell._rows, shell._cols
@@ -111,17 +111,12 @@ class BalloonNewtonSolver:
         self.mass_gather = md
         self.Mdiag = np.asarray(M.diagonal())
         if dtype is None:
-            # f64 on CPU (x64 enabled in tests); f32 on TPU where f64 is
-            # slow double-word emulation
+            # x64-aware default (f64 under jax_enable_x64, else f32)
             dtype = jnp.float64 if jax.config.jax_enable_x64 else jnp.float32
         # build_solver=False: assembly machinery only (the sharded balloon
         # path routes solves through parallel/halo.py instead)
-        # well=False: the scalar-expanded steppers hand natural-order
-        # vectors straight to _refresh_impl/solve_loop, so the windowed
-        # kernel's permuted hierarchy would mismatch them. The block (BSR)
-        # stepper is the fast path on TPU (solver/bsr.py).
         self.solver = (
-            RefreshableMGSolver(mg, pattern, cfg=cfg, dtype=dtype, well=False)
+            RefreshableMGSolver(mg, pattern, cfg=cfg, dtype=dtype)
             if build_solver
             else None
         )
@@ -276,9 +271,8 @@ class DeviceBalloonStepper:
             # underestimate it, which diverges the window (the
             # pressure-1e6 failure mode).  Power iteration is heuristic;
             # the certified Gershgorin bound (_bsr_gershgorin_lam) is
-            # available but costs ~2x the V-cycles (measured,
-            # probe_balloon_profile_r3.py) and the divergence it would
-            # prevent is removed at the source by the per-face PSD
+            # available but costs more V-cycles, and the divergence it
+            # would prevent is removed at the source by the per-face PSD
             # projection (models/shell.py).
             lam0 = None
 
@@ -373,9 +367,8 @@ class BsrBalloonStepper:
     implicit_euler_mg_balloon.h:40-120: 10 Newton iterations of
     H dx = -g with H = M + dt^2 K, backtracking line search), but the
     Hessian lives as 3x3 blocks on the VERTEX graph and the V-cycle runs
-    on [nv, 3] states (solver/bsr.py).  On TPU the scalar-expanded block
-    SpMV falls off Mosaic's fast gather path (~1000x, see CLAUDE.md);
-    the BSR form gathers rows of [nv, 3], which stays on it.
+    on [nv, 3] states (solver/bsr.py): each SpMV row gathers contiguous
+    3-vectors instead of ~36 scattered scalars.
 
     Takes the SCALAR hierarchy from mg_precompute — the reference's
     3-expanded block prolongation (src/get_prolong.cpp:59-115) is the
@@ -386,11 +379,9 @@ class BsrBalloonStepper:
     def __init__(self, shell: ShellEnergy, M: sp.csr_matrix, mg, dt: float,
                  mg_tolerance: float = 2e-1, n_newton: int = 10,
                  max_cycles: int = 20, cfg=None, dtype=None,
-                 well: bool | None = None,
-                 newton_unroll: bool | None = None,
                  psd_project: bool = True,
                  asm_w_cap: int = 4,
-                 coarsest_nv: int | None = None):
+                 coarsest_nv: int = 0):
         import jax
         import jax.numpy as jnp
         from surface_multigrid_code_tpu.models.shell import (
@@ -404,17 +395,13 @@ class BsrBalloonStepper:
             extend_hierarchy,
         )
 
-        # TPU-native hierarchy depth: the per-Newton refresh pays a dense
-        # Cholesky INVERSE of the coarsest operator, so on accelerator
-        # backends the reference's >500-vertex stopping rule
-        # (src/mg_precompute.cpp:94) leaves ~4 ms/Newton on the table —
-        # extend the given hierarchy down to ~coarsest_nv vertices
-        # (bunny_15K step 386 -> 288 ms, end state parity ~1e-6 rel;
-        # see solver/hierarchy.extend_hierarchy).  coarsest_nv=0 opts
-        # out; on CPU (f64 tests, reference-semantics runs) the given
-        # hierarchy is used as-is unless coarsest_nv is passed.
-        if coarsest_nv is None:
-            coarsest_nv = 40 if jax.default_backend() != "cpu" else 0
+        # The per-Newton refresh pays a dense Cholesky INVERSE of the
+        # coarsest operator; coarsest_nv > 0 extends the given hierarchy
+        # below the reference's >500-vertex stopping rule
+        # (src/mg_precompute.cpp:94) down to ~coarsest_nv vertices (see
+        # solver/hierarchy.extend_hierarchy).  The default 0 keeps the
+        # given hierarchy, so the single-device and sharded balloon solve
+        # on the same levels.
         if coarsest_nv:
             mg = extend_hierarchy(mg, min_coarsest_nv=coarsest_nv)
 
@@ -448,104 +435,20 @@ class BsrBalloonStepper:
         if dtype is None:
             dtype = jnp.float64 if jax.config.jax_enable_x64 else jnp.float32
         self.dtype = dtype
-        solver = BsrRefreshableSolver(mg, pattern, cfg=cfg, dtype=dtype,
-                                      well=well)
+        solver = BsrRefreshableSolver(mg, pattern, cfg=cfg, dtype=dtype)
         self.solver = solver
-        if newton_unroll is None:
-            # trace-time unroll of the Newton loop is available for
-            # experiments but never needed: the round-2 TPU worker fault
-            # was bisected to IN-JIT vperm row-permutes/scatters composed
-            # with the Newton fori_loop (probe_step_bisect stage 16
-            # crashes, stage 15 — identical minus permutes — passes), so
-            # the jitted step now runs entirely in permuted space and
-            # the public step() permutes on host.
-            newton_unroll = False
         self.pattern = solver.pattern_v
         cfg = solver.cfg
         dt = float(dt)
         nnz = pattern.nnz
 
-        # When the solver permutes (well mode), assemble DIRECTLY in the
-        # kernel's vertex ordering: map every static vertex-id table
-        # through the inverse permutation so the per-step assembly and
-        # energies run in permuted space at zero runtime cost; only the
-        # step's [nv, 3] inputs/outputs get one row-permute each.
-        vperm = solver.vperm
-        self._vperm = vperm
-        if vperm is not None:
-            ip = np.empty_like(vperm)
-            ip[vperm] = np.arange(nv)
-            F = ip[F]
-            rows = ip[rows]
-            cols = ip[cols]
-            opp = None if not shell.bending else ip[shell.opp]
-        else:
-            opp = None if not shell.bending else shell.opp
-        # Windowed incidence-SpMV assembly (well mode, stretching-only):
-        # scattering face 3x3 entries into vertex-pair slots through the
-        # [nnz, W] ELL gather is row-count-bound (~12.5 ms/assembly at
-        # bunny_15K regardless of W — probe_asm_wcap.py), while the same
-        # linear map as a windowed SpMV of the ALL-ONES incidence
-        # operator (rows = pattern slots, cols = face entries) rides the
-        # select chain with the 9 block components batched as planes.
-        # Faces are reordered by their minimal permuted vertex id so the
-        # entry columns band with the slot rows.
-        self._asm_well = None
-        self._gather_well = None
-        if solver.well and not shell.bending:
-            forder = np.argsort(F.min(axis=1), kind="stable")
-            F = F[forder]
-            eorder = (
-                9 * forder[:, None] + np.arange(9)[None, :]
-            ).reshape(-1)
-            rows = rows[eorder]
-            cols = cols[eorder]
+        opp = None if not shell.bending else shell.opp
         slots = csr_slot_map(solver.pattern_v, rows, cols)
-        if solver.well and not shell.bending:
-            from surface_multigrid_code_tpu.ops.well import (
-                _UNROLL_CAP,
-                build_well_auto,
-            )
-
-            nf9 = 9 * nf
-            A_inc = sp.coo_matrix(
-                (
-                    np.ones(nf9, dtype=np.float64),
-                    (slots, np.arange(nf9)),
-                ),
-                shape=(nnz, nf9),
-            ).tocsr()
-            # 9 component planes share one kernel: budget the unrolled
-            # body at cap/9 (see well_apply's multi-column fallback note)
-            self._asm_well = build_well_auto(
-                A_inc, dtype=dtype, cap=_UNROLL_CAP // 9
-            )
-            # Corner-gather operator: row 3f+c selects permuted vertex
-            # F[f, c], so ONE windowed planes SpMV replaces the serial
-            # XLA x[F] gather (~6.8 ns/element) in the per-trial
-            # line-search energies and the assembly's face states.
-            # Faces are already ordered by min vertex id, so the
-            # selection columns band with the rows.
-            G_sel = sp.coo_matrix(
-                (
-                    np.ones(3 * nf, dtype=np.float64),
-                    (np.arange(3 * nf), F.reshape(-1)),
-                ),
-                shape=(3 * nf, nv),
-            ).tocsr()
-            self._gather_well = build_well_auto(
-                G_sel, dtype=dtype, cap=_UNROLL_CAP // 3
-            )
         order = np.argsort(slots, kind="stable")
         # Gather-plan width: off-diagonal vertex pairs receive exactly two
-        # face contributions on a closed manifold; narrow W + the sorted
-        # segment_sum tail beats the former W_cap=16 (which padded every
-        # row to the diagonal width) by ~5 ms/assembly at bunny_15K.
-        # The gather is ROW-count bound on TPU (~6.8 ns per gathered
-        # 3x3 row regardless of padding), so the win saturates at W=4
-        # (measured 25.2 / 25.6 / 30.0 ms full-assembly at W=4/2/16,
-        # probe_asm_wcap.py); the remaining ~12 ms is the irreducible
-        # per-row gather cost of this scatter formulation.
+        # face contributions on a closed manifold; a narrow W plus the
+        # sorted segment_sum tail for the wide diagonal rows avoids
+        # padding every row to the diagonal width.
         gi, gw, ti, tw, ts = _ellize_segments(
             slots[order], order, np.ones(order.shape[0]),
             order.shape[0], nnz, W_cap=asm_w_cap,
@@ -554,13 +457,6 @@ class BsrBalloonStepper:
             solver.pattern_v, np.arange(nv), np.arange(nv))
         Mv = np.asarray(M.diagonal())[0::3]
         Mdiag = np.asarray(M.diagonal()).reshape(nv, 3)
-        if vperm is not None:
-            Mv = Mv[vperm]
-            Mdiag = Mdiag[vperm]
-
-        abars = shell.abars
-        if self._asm_well is not None:
-            abars = abars[jnp.asarray(forder)]
         state = {
             "solver": solver._state,
             "asm_gather": jnp.asarray(gi),
@@ -569,19 +465,13 @@ class BsrBalloonStepper:
             "diag_slots": jnp.asarray(diag_slots),
             "Mv": jnp.asarray(Mv, dtype=dtype),
             "Mdiag": jnp.asarray(Mdiag.reshape(-1), dtype=dtype),
-            "abars": abars.astype(dtype),
+            "abars": shell.abars.astype(dtype),
             "F": jnp.asarray(F),
         }
-        if self._asm_well is not None:
-            state["asm_Ws"] = self._asm_well
-        if self._gather_well is not None:
-            state["gat_Ws"] = self._gather_well
         if shell.bending:
             state["opp"] = jnp.asarray(opp)
             state["mask"] = jnp.asarray(shell.mask)
             state["bbars"] = shell.bbars.astype(dtype)
-        if vperm is not None:
-            state["vperm"] = jnp.asarray(vperm)
 
         def energy(st, x_flat):
             from surface_multigrid_code_tpu.models.shell import _energy_sum
@@ -598,19 +488,7 @@ class BsrBalloonStepper:
         val_grad_e = jax.value_and_grad(energy, argnums=1)
 
         def face9(st, v_flat):
-            """[nv*3] -> [nf, 9] per-face corner states.  Windowed
-            corner-gather when available (one planes kernel; XLA CSEs
-            duplicate calls on the same operand), XLA gather otherwise."""
-            if "gat_Ws" in st:
-                from surface_multigrid_code_tpu.ops.well import well_apply
-
-                out = well_apply(st["gat_Ws"], v_flat.reshape(-1, 3).T)
-                return (
-                    out.reshape(3, nf, 3)
-                    .transpose(1, 2, 0)
-                    .reshape(nf, 9)
-                    .astype(v_flat.dtype)
-                )
+            """[nv*3] -> [nf, 9] per-face corner states."""
             return v_flat.reshape(-1, 3)[st["F"]].reshape(nf, 9)
 
         def block_vals(st, x_flat):
@@ -636,25 +514,13 @@ class BsrBalloonStepper:
                     .reshape(nf * 36, 3, 3)
                 )
             e = dt * dt * jnp.concatenate(ent)
-            if "asm_Ws" in st:
-                # windowed incidence SpMV: the 9 block components ride
-                # one planes kernel over the all-ones operator (face
-                # entries are pre-ordered so columns band with rows)
-                from surface_multigrid_code_tpu.ops.well import well_apply
-
-                xp = e.reshape(-1, 9).T  # [9, nf9]
-                y = well_apply(st["asm_Ws"], xp)  # [9, nnz]
-                vals = y.T.reshape(nnz, 3, 3).astype(e.dtype)
-            else:
-                epad = jnp.concatenate(
-                    [e, jnp.zeros((1, 3, 3), dtype=e.dtype)]
+            epad = jnp.concatenate([e, jnp.zeros((1, 3, 3), dtype=e.dtype)])
+            vals = epad[st["asm_gather"]].sum(axis=1)
+            if st["asm_tail_idx"].shape[0]:
+                vals = vals + jax.ops.segment_sum(
+                    epad[st["asm_tail_idx"]], st["asm_tail_seg"],
+                    num_segments=nnz, indices_are_sorted=True,
                 )
-                vals = epad[st["asm_gather"]].sum(axis=1)
-                if st["asm_tail_idx"].shape[0]:
-                    vals = vals + jax.ops.segment_sum(
-                        epad[st["asm_tail_idx"]], st["asm_tail_seg"],
-                        num_segments=nnz, indices_are_sorted=True,
-                    )
             eye3 = jnp.eye(3, dtype=vals.dtype)
             return vals.at[st["diag_slots"]].add(
                 st["Mv"][:, None, None] * eye3
@@ -663,25 +529,15 @@ class BsrBalloonStepper:
         self._block_vals = block_vals
 
         # No lam hoist: the Chebyshev bound is recomputed inside each
-        # in-loop refresh (power iteration + 1.1x margin, inline in
-        # solver/bsr._refresh_well) so it tracks the drifted in-step
-        # spectrum (a stale hoisted estimate can underestimate it, which
-        # diverges the window — the pressure-1e6 failure mode), and
-        # in-iteration recomputation is exactly the stage-20 shape the
-        # round-2 TPU-worker-crash bisect proved safe (traced lam from a
-        # PRIOR dispatch feeding the in-loop windowed refresh faults the
-        # worker).  The certified Gershgorin bound
-        # (solver/bsr._bsr_gershgorin_lam) stays available but costs ~2x
-        # the V-cycles (measured, probe_balloon_profile_r3.py); the
-        # divergence it would prevent is removed at the source by the
-        # per-face PSD projection (models/shell.py).
+        # in-loop refresh (power iteration + 1.1x margin) so it tracks the
+        # drifted in-step spectrum (a stale hoisted estimate can
+        # underestimate it, which diverges the window — the pressure-1e6
+        # failure mode).  The certified Gershgorin bound
+        # (solver/bsr._bsr_gershgorin_lam) stays available but costs more
+        # V-cycles; the divergence it would prevent is removed at the
+        # source by the per-face PSD projection (models/shell.py).
 
         def step(st, curPos0, qdot0, fExt):
-            # NOTE: in well mode every [nv, *] input is already in the
-            # solver's permuted vertex order (the public step() permutes
-            # on host) and outputs stay permuted.  Permuting INSIDE this
-            # program faults the TPU worker when composed with the
-            # Newton fori_loop — probe_step_bisect stages 15/16.
             curPos0 = curPos0.astype(dtype)
             qdot0 = qdot0.astype(dtype)
             fExt = fExt.astype(dtype)
@@ -712,8 +568,7 @@ class BsrBalloonStepper:
                 # gather the face corner states of x and dx ONCE (the x9
                 # gather CSEs with block_vals'), so each backtracking
                 # trial is pure per-face flops — no per-trial gather
-                # (the vmapped face-energy pass was gather-bound at
-                # ~6.8 ns/element; reference backtracking semantics
+                # (reference backtracking semantics
                 # sim_utils/implicit_euler_mg_balloon.h:80-114 unchanged)
                 from surface_multigrid_code_tpu.models.shell import (
                     face_bending_energy,
@@ -770,14 +625,7 @@ class BsrBalloonStepper:
                 return (qdot, alpha, nrej + (~good).astype(jnp.int32))
 
             carry = (qdot0, jnp.asarray(1.0, dtype=dtype), jnp.int32(0))
-            if newton_unroll:
-                # trace-time unroll: keeps ONE dispatch but no lax While
-                # around the windowed Pallas kernels (see newton_unroll
-                # note in __init__)
-                for i in range(n_newton):
-                    carry = newton(i, carry)
-            else:
-                carry = jax.lax.fori_loop(0, n_newton, newton, carry)
+            carry = jax.lax.fori_loop(0, n_newton, newton, carry)
             qdot, _, nrej = carry
             curPos = curPos0 + dt * qdot.reshape(-1, 3)
             return curPos, qdot, nrej
@@ -785,22 +633,8 @@ class BsrBalloonStepper:
         self._state = state
         self._step = jax.jit(step)
 
-    @property
-    def refresh_backend(self) -> str:
-        """Value-refresh path of the underlying BSR solver: "chain"
-        (windowed slot-space kernel chain) or "plan-gather" (XLA gathers
-        — CPU runs or a ChainTooWide fallback; see
-        solver.refresh_fallback_reason)."""
-        return self.solver.refresh_backend
-
     def step(self, curPos, qdot, fExt):
         """One implicit Euler step; returns (curPos_next, qdot_next).
-
-        In well mode the jitted program runs entirely in the solver's
-        permuted vertex order; this wrapper permutes inputs / inverse-
-        permutes outputs on host (in-jit permutes composed with the
-        Newton fori_loop fault the TPU worker — probe_step_bisect
-        stages 15/16).
 
         Newton iterations whose direction fails the line search (or is
         non-finite) leave the state untouched; the count is reported in
@@ -811,18 +645,11 @@ class BsrBalloonStepper:
 
         import jax.numpy as jnp
 
-        vp = self._vperm
-        curPos = np.asarray(curPos, dtype=np.float64)
-        qdot3 = np.asarray(qdot, dtype=np.float64).reshape(-1, 3)
-        fExt3 = np.asarray(fExt, dtype=np.float64).reshape(-1, 3)
-        if vp is not None:
-            curPos = curPos[vp]
-            qdot3 = qdot3[vp]
-            fExt3 = fExt3[vp]
         p, q, nrej = self._step(
-            self._state, jnp.asarray(curPos),
-            jnp.asarray(qdot3.reshape(-1)),
-            jnp.asarray(fExt3.reshape(-1)),
+            self._state,
+            jnp.asarray(np.asarray(curPos, dtype=np.float64)),
+            jnp.asarray(np.asarray(qdot, dtype=np.float64).reshape(-1)),
+            jnp.asarray(np.asarray(fExt, dtype=np.float64).reshape(-1)),
         )
         self.last_rejected = int(nrej)
         if self.last_rejected:
@@ -831,15 +658,10 @@ class BsrBalloonStepper:
                 " rejected (line search failed or non-finite direction);"
                 " state frozen for those iterations", stacklevel=2,
             )
-        p = np.asarray(p, dtype=np.float64)
-        q = np.asarray(q, dtype=np.float64).reshape(-1, 3)
-        if vp is not None:
-            po = np.empty_like(p)
-            po[vp] = p
-            qo = np.empty_like(q)
-            qo[vp] = q
-            p, q = po, qo
-        return p, q.reshape(-1)
+        return (
+            np.asarray(p, dtype=np.float64),
+            np.asarray(q, dtype=np.float64).reshape(-1),
+        )
 
 
 def implicit_euler_balloon_direct(
@@ -971,9 +793,7 @@ def run_balloon(
     mesh, inflation force recomputed per outer step.  Yields curPos per step.
 
     solver="bsr" (default): fully-on-device `BsrBalloonStepper` — the
-    Hessian lives as 3x3 blocks on the VERTEX graph (measured 1175x faster
-    per SpMV than the scalar-expanded 3#V-row form on TPU, see DESIGN.md);
-    `mg` must then be a SCALAR hierarchy (`mg_precompute`).  solver="scalar":
+    Hessian lives as 3x3 blocks on the VERTEX graph; `mg` must then be a SCALAR hierarchy (`mg_precompute`).  solver="scalar":
     the host-orchestrated `implicit_euler_mg_balloon` on the 3-expanded
     block hierarchy (`mg_precompute_block`), mirroring the reference's data
     layout (sim_utils/implicit_euler_mg_balloon.h:18-124) — kept as the

@@ -6,7 +6,7 @@ ORIGINAL mesh), M the barycentric mass of the CURRENT mesh, mg tol 5e-7,
 then re-normalize surface area — re-running the full multigrid precompute
 each step.
 
-TPU-first, the whole step is ONE jitted program:
+The whole step is ONE jitted program:
   U -> barycentric mass diag (device assembly)
     -> finest nnz values (-delta * L_vals, diag += mass)
     -> cached-symbolic Galerkin refresh of all levels (solver/galerkin.py)
@@ -47,7 +47,6 @@ class MCFStepper:
         max_iter: int = 20,
         cfg: SolveConfig | None = None,
         dtype=jnp.float32,
-        well: bool | None = None,
     ):
         self.F = np.asarray(F, dtype=np.int64)
         self.delta = float(delta)
@@ -56,7 +55,7 @@ class MCFStepper:
         cfg = cfg or SolveConfig(smoother=SmootherType.MULTICOLOR_GS)
         L = cotmatrix(V, F).tocsr()
         L.sum_duplicates()
-        self.solver = RefreshableMGSolver(mg, L, cfg=cfg, dtype=dtype, well=well)
+        self.solver = RefreshableMGSolver(mg, L, cfg=cfg, dtype=dtype)
         n = V.shape[0]
         diag_slots = csr_slot_map(L, np.arange(n), np.arange(n))
         # device buffers travel as jit arguments (see solver/galerkin.py on
@@ -67,15 +66,6 @@ class MCFStepper:
             "F": jnp.asarray(self.F),
             "diag_slots": jnp.asarray(diag_slots),
         }
-        # Windowed-kernel hierarchy (solver/refresh.py well=True) lives in
-        # RCM-permuted space; the nnz values need no treatment (the plan's
-        # finest gathers have the permutation composed in), only the solve
-        # vectors are permuted around solve_loop.
-        if self.solver.perm is not None:
-            rank = np.empty_like(self.solver.perm)
-            rank[self.solver.perm] = np.arange(self.solver.perm.shape[0])
-            self._mcf_state["perm"] = jnp.asarray(self.solver.perm)
-            self._mcf_state["iperm"] = jnp.asarray(rank)
 
         def step(state, U):
             U = U.astype(dtype)
@@ -83,21 +73,15 @@ class MCFStepper:
             mass = massmatrix_barycentric_diag_jax(U, Fj)
             vals = state["L_vals"].at[state["diag_slots"]].add(mass)
             rhs = mass[:, None] * U
-            U0 = U
-            if "perm" in state:
-                rhs = rhs[state["perm"]]
-                U0 = U[state["perm"]]
             hier = self.solver._refresh_impl(state["solver"], vals)
             Unew, r_his, k = solve_loop(
                 hier,
                 rhs,
-                U0,
+                U,
                 jnp.asarray(self.mg_tol, dtype=dtype),
                 self.max_iter,
                 cfg,
             )
-            if "perm" in state:
-                Unew = Unew[state["iperm"]]
             # re-normalize to unit area, zero-mean x/y, floor z
             # (reference src/normalize_unit_area.cpp:9-23)
             P0, P1, P2 = Unew[Fj[:, 0]], Unew[Fj[:, 1]], Unew[Fj[:, 2]]
@@ -113,14 +97,6 @@ class MCFStepper:
 
         self._step_fn = jax.jit(step)
         self._step = lambda U: self._step_fn(self._mcf_state, U)
-
-    @property
-    def refresh_backend(self) -> str:
-        """Value-refresh path of the underlying solver: "chain" (windowed
-        slot-space kernel chain) or "plan-gather" (XLA gathers — CPU runs
-        or a ChainTooWide fallback; see
-        solver.refresh_fallback_reason)."""
-        return self.solver.refresh_backend
 
     def step(self, U: np.ndarray):
         """One flow step; returns (U_next, r_his list, converged)."""

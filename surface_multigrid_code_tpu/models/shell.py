@@ -2,11 +2,11 @@
 
 The reference vendors libshell with ~1.5 KLoC of hand-coded per-face
 gradients/Hessians (06_example_balloon_sim/sim_utils/MaterialModel/*.cpp,
-GeometryDerivatives.cpp).  TPU-first we instead write the per-face energy
+GeometryDerivatives.cpp).  Here we instead write the per-face energy
 densities once and get exact derivatives from JAX autodiff: the gradient is
 one reverse-mode pass over all faces, and the per-face 9x9 Hessians come
-from a vmapped forward-over-reverse `jax.hessian` — both batched,
-MXU/VPU-friendly device code.
+from a vmapped forward-over-reverse `jax.hessian` — both batched
+device code.
 
 Energy densities (exactly the reference's formulas, stretching term only —
 the balloon sim uses ET_STRETCHING alone, implicit_euler_mg_balloon.h:53):
@@ -38,54 +38,53 @@ import jax.numpy as jnp
 MATERIALS = ("neohookean", "stvk", "tension_field")
 
 
+def _highest(fn):
+    """Trace `fn` with every matrix product at Precision.HIGHEST: an f32
+    product at default precision may run in TF32 on a GPU (~3 decimal
+    digits), too coarse for the Newton Hessians.  The precision is fixed
+    when the product is traced, so it holds under jit, vmap and autodiff.
+    """
+
+    @functools.wraps(fn)
+    def wrapped(*args, **kwargs):
+        with jax.default_matmul_precision("highest"):
+            return fn(*args, **kwargs)
+
+    return wrapped
+
+
 def psd_project_blocks(H: jnp.ndarray, schedule=None) -> jnp.ndarray:
     """Per-face PSD projection of symmetric Hessian blocks [m, d, d]:
     clamp negative eigenvalues to (near) zero.
 
     Why: the raw autodiff shell Hessians (like the reference's hand-coded
     ones, sim_utils/ElasticShell.cpp — no projection there either) go
-    INDEFINITE under large deformation (measured on bunny_15K at the
-    reference's inflation pressure 1e6: min eig(H) = -2.8e-3 with a
-    -0.63 diagonal entry).  The reference survives because its LDLT/
-    Gauss-Seidel in f64 limps through and the line search rejects the
-    garbage directions; an SPD-assuming f32 multigrid (Chebyshev window,
-    coarse Cholesky) instead diverges to overflow.  Clamping per-block
-    is the standard Newton globalization for elastic shells.
+    INDEFINITE under large deformation (on bunny_15K at the reference's
+    inflation pressure 1e6: min eig(H) = -2.8e-3 with a -0.63 diagonal
+    entry).  The reference survives because its LDLT/Gauss-Seidel in f64
+    limps through and the line search rejects the garbage directions; an
+    SPD-assuming f32 multigrid (Chebyshev window, coarse Cholesky) instead
+    diverges to overflow.  Clamping per-block is the standard Newton
+    globalization for elastic shells.
 
-    How: NOT batched eigh — jnp.linalg.eigh on [32K, 9, 9] costs ~450 ms
-    per call on this TPU (probe_balloon_profile_r3.py), which at 10+
-    Newton iterations dominated the whole implicit-Euler step.  Instead
-    the matrix sign function is computed with a Newton-Schulz-type cubic
-    iteration (x <- a x - b x^3, batched matmuls — MXU work), and
+    How: the matrix sign function by a Newton-Schulz-type cubic iteration
+    (x <- a x - b x^3, ops/psd.py), and
         PSD(H) = (H + H sign(H)) / 2 = U max(L, 0) U^T.
     Eigenvalues tiny relative to ||H|| converge slowly through the sign
     iteration, but their clamping error is proportionally tiny
     (|residue| <= |lam|), so big negatives — the ones that break the
     solver — are removed exactly while near-null directions keep a
-    harmless residue (the accelerated schedule saturates the sign for
+    harmless residue (the schedule saturates the sign for
     |lam|/||H|| >= ~1.2e-3; smaller negatives are dominated by dt^2
     scaling + the positive lumped mass).
 
-    Blocks are packed `pack`-at-a-time into block-diagonal 126x126 tiles
-    (batched 9x9 matmuls run at <1% MXU utilization; block-diagonality
-    is exact under products so the extraction is exact), and the whole
-    schedule runs VMEM-resident in one Pallas kernel (ops/psd.py): one
-    HBM read + write of the packed operand instead of ~6 passes per
-    iteration (round-3 einsum path: 38 ms/projection at 32K faces,
-    HBM-bound).  The accelerated coefficient schedule (7 greedy growth
-    cubics + 5 NS cleanup, designed in
-    benchmarks/probes/design_ns_schedule.py) replaces the old 16x plain
-    NS: 25 matmuls instead of 33 with a ~4x BETTER saturation threshold
-    (|sign - 1| <= 1e-4 for |lam|/s >= 7.9e-4 vs the old 4.9e-3).
-    Blocks whose clamp correction is below 1e-4 ||H|| pass through
-    BITWISE unchanged, so trajectories at moderate loads are identical.
+    Blocks are packed `126 // d` at a time into block-diagonal 128x128
+    tiles; block-diagonality is exact under products, so the extraction
+    is exact.  Blocks whose clamp correction is below 1e-4 ||H|| pass
+    through BITWISE unchanged, so trajectories at moderate loads are
+    identical.
     """
-    from ..ops.psd import (
-        NS_SCHEDULE,
-        ns_sign_apply_packed,
-        ns_sign_apply_packed_xla,
-    )
-    from ..ops.well import _x64_kernel_guard
+    from ..ops.psd import NS_SCHEDULE, TILE, ns_sign_apply_packed
 
     if schedule is None:
         schedule = NS_SCHEDULE
@@ -97,7 +96,7 @@ def psd_project_blocks(H: jnp.ndarray, schedule=None) -> jnp.ndarray:
     s = jnp.maximum(s, 1e-30)
     X = Hs / s[:, None, None]
 
-    pack = max(1, 126 // d)
+    pack = max(1, (TILE - 2) // d)
     g = -(-m // pack)
     Xpad = jnp.zeros((g * pack, d, d), dtype=H.dtype)
     Xpad = jax.lax.dynamic_update_slice(Xpad, X, (0, 0, 0))
@@ -106,23 +105,16 @@ def psd_project_blocks(H: jnp.ndarray, schedule=None) -> jnp.ndarray:
     # row for packed position j*d+p, so Z = E^T X4 E places each block
     # at its diagonal offset and Yb = E Y E^T reads it back.  Selector
     # products at Precision.HIGHEST pick entries EXACTLY (bitwise equal
-    # to dynamic slices — probe_psd_tail.py), and the einsums run ~15 ms
-    # faster than the 14-step dynamic_update_slice chain this replaces
-    # (24.4 -> 9.6 ms head at m=31608; XLA lowers the strided 9x9
-    # sub-tile updates of a [g,128,128] operand miserably).
+    # to dynamic slices).
     hi = jax.lax.Precision.HIGHEST
     E = jax.nn.one_hot(
-        jnp.arange(pack)[:, None] * d + jnp.arange(d)[None, :], 128,
+        jnp.arange(pack)[:, None] * d + jnp.arange(d)[None, :], TILE,
         dtype=H.dtype,
     )
     T = jnp.einsum("gjpq,jqc->gjpc", X4, E, precision=hi)
     Z = jnp.einsum("jpr,gjpc->grc", E, T, precision=hi)
 
-    if Z.dtype == jnp.float64:
-        Y = ns_sign_apply_packed_xla(Z, schedule)
-    else:
-        with _x64_kernel_guard(Z.dtype):
-            Y = ns_sign_apply_packed(Z, schedule)
+    Y = ns_sign_apply_packed(Z, schedule)
     # Y = X + X @ sign(X) packed; per-block Hp = s/2 * that block
     Tb = jnp.einsum("grc,jqc->gjrq", Y, E, precision=hi)
     Yb = jnp.einsum(
@@ -140,6 +132,7 @@ def lame_parameters(young: float, poisson: float) -> tuple[float, float]:
     return alpha, beta
 
 
+@_highest
 def first_fundamental_form(x9: jnp.ndarray) -> jnp.ndarray:
     """2x2 metric of one triangle given its stacked vertex positions [9]."""
     v0, v1, v2 = x9[0:3], x9[3:6], x9[6:9]
@@ -171,6 +164,7 @@ def _stvk_W(S, alpha, beta):
     return 0.5 * alpha * jnp.trace(S) ** 2 + beta * jnp.trace(S @ S)
 
 
+@_highest
 def metric_energy(c, abar, thickness, alpha, beta, material: str):
     """Stretching energy density as a function of the metric's three
     distinct entries c = (a11, a12, a22) — the ONLY channel through which
@@ -209,6 +203,7 @@ def metric_energy(c, abar, thickness, alpha, beta, material: str):
     return jnp.where(pure_tension, stvk, jnp.where(slack, 0.0, wrinkle))
 
 
+@_highest
 def _metric_entries(x9):
     e1, e2 = x9[3:6] - x9[0:3], x9[6:9] - x9[0:3]
     return e1, e2, jnp.array(
@@ -216,6 +211,7 @@ def _metric_entries(x9):
     )
 
 
+@_highest
 def face_energy(x9, abar, thickness, alpha, beta, material: str):
     """Stretching energy of one face (density formulas above)."""
     _e1, _e2, c = _metric_entries(x9)
@@ -234,6 +230,7 @@ _KC = np.stack([
 ])  # [3, 9, 9]
 
 
+@_highest
 def face_hessian_stretch(x9, abar, thickness, alpha, beta, material: str):
     """Structured 9x9 stretching Hessian via the metric pullback.
 
@@ -244,9 +241,7 @@ def face_hessian_stretch(x9, abar, thickness, alpha, beta, material: str):
     where J = dc/dx9 (3x9, linear in the edges) and the d2c_k are the
     constant tensors _KC above.  H_W is a 3-VARIABLE Hessian of the
     scalar material law — a handful of ops — replacing jax.hessian's
-    nine JVP columns through the whole face-energy graph (measured
-    18.6 ms per assembly at 31.6K faces on TPU; the balloon's largest
-    remaining per-Newton cost after round 4's projection work).
+    nine JVP columns through the whole face-energy graph.
     Algebraically identical to jax.hessian(face_energy); validated to
     f64 roundoff in tests/test_shell.py."""
     e1, e2, c = _metric_entries(x9)
@@ -344,6 +339,7 @@ def edge_thetas_jax(V: jnp.ndarray, ev: jnp.ndarray) -> jnp.ndarray:
     return jnp.where(ev[:, 3] >= 0, theta, 0.0)
 
 
+@_highest
 def second_fundamental_form_angle(x9, theta3, phi3, orient3, variant: str):
     """Angle-based midedge SFF of one face
     (MidedgeAngle{Tan,Sin}Formulation.cpp:110-270):
@@ -362,6 +358,7 @@ def second_fundamental_form_angle(x9, theta3, phi3, orient3, variant: str):
     return jnp.array([[II[0] + II[1], II[0]], [II[0], II[0] + II[2]]])
 
 
+@_highest
 def second_fundamental_form(x18, mask3):
     """Midedge-average SFF of one face from its 6-vertex stencil
     (reference MidedgeAverageFormulation.cpp:7-246): unnormalized own and
@@ -388,6 +385,7 @@ def second_fundamental_form(x18, mask3):
     )
 
 
+@_highest
 def face_bending_energy(x18, abar, bbar, mask3, thickness, alpha, beta,
                         material: str):
     """Bending energy of one face.

@@ -1,4 +1,4 @@
-// SSP decimation engine (host precompute stage of the TPU framework).
+// SSP decimation engine (host precompute stage of the framework).
 //
 // Greedy edge-collapse decimation maintaining a successive
 // self-parameterization (SSP): every accepted collapse stores the joint

@@ -1,46 +1,39 @@
-"""Fused Newton-Schulz matrix-sign kernel for per-face PSD projection.
+"""Newton-Schulz matrix-sign products for the per-face PSD projection.
 
 The balloon stepper projects every per-face 9x9 (or 18x18 bending) shell
 Hessian block to PSD each Newton iteration (models/shell.psd_project_blocks;
 the reference has no analog — its f64 LDLT limps through indefiniteness,
 sim_utils/implicit_euler_mg_balloon.h:48-120, while an f32 SPD multigrid
-needs the projection).  Round 3 ran the sign iteration as XLA einsums over a
-packed [g, 126, 126] block-diagonal: ~6 HBM passes over the 14x-inflated
-143 MB operand per iteration, 38 ms per projection at 32K faces — HBM-bound.
+needs the projection).  Blocks are packed into block-diagonal 128x128
+tiles and the sign function runs as a fixed cubic schedule of products.
 
-This kernel keeps each packed tile RESIDENT IN VMEM for the whole schedule:
-one read + one write of the operand total, all iterations on the MXU.
-Second win: the fixed 16x cubic (1.5x - 0.5x^3) schedule is replaced by an
-accelerated coefficient schedule (benchmarks/probes/design_ns_schedule.py):
-7 greedy growth cubics (max-slope subject to p >= 0 on the tracked interval
-and max p <= 1.2) + 5 plain NS cleanup cubics.  12 cubics (25 matmuls incl.
-the final H·sign(H)) replace 33, and the saturation threshold IMPROVES 6x:
-|sign - 1| <= 1e-4 for |lam|/s >= 7.9e-4 (old schedule: 4.9e-3).
+The accelerated coefficient schedule: 7 greedy growth cubics (max-slope
+subject to p >= 0 on the tracked interval and max p <= 1.2) + 5 plain NS
+cleanup cubics — 12 cubics (25 products incl. the final H·sign(H)) with
+|sign - 1| <= 1e-4 for |lam|/s >= 7.9e-4.
 
-Matmuls run at Precision.HIGHEST (full f32, 6-pass MXU).  This is NOT
-optional: the schedule was designed under exact-f32 scalar math
-(design_ns_schedule.py), and at the TPU default precision (bf16 inputs)
-the greedy growth phase — per-step slopes up to ~2.6, seven steps —
-amplifies bf16's ~4e-3 relative rounding on small-eigenvalue directions
-by ~700x into ORDER-ONE spectral error: measured min-eig-rel -0.44
-(unprojected!) on 31,608 random 9x9 blocks, while the same kernel at
-f32 projects to ~1e-6 (probe_psd_bisect.py, round 4).  Plain 16x NS
-tolerated bf16 only because its map contracts at the +-1 attractor
-(p'(+-1) = 0), crushing injected noise; an accelerated schedule holds
-eigenvalues in the expanding region for its whole growth phase.
+Products run at Precision.HIGHEST (IEEE f32).  This is NOT optional: the
+schedule was designed under exact-f32 scalar math, and at reduced input
+precision (bf16, or TF32 on a GPU) the greedy growth phase — per-step
+slopes up to ~2.6, seven steps — amplifies the input rounding on
+small-eigenvalue directions into order-one spectral error.  Plain 16x NS
+tolerates it only because its map contracts at the +-1 attractor
+(p'(+-1) = 0); an accelerated schedule holds eigenvalues in the expanding
+region for its whole growth phase.
+
+The products are batched einsums left to XLA.  A hand-written Triton
+kernel holding one tile per program through the whole schedule was tried
+on the H100 and lost (PERF.md): XLA's form is the one kept.
 """
 
 from __future__ import annotations
 
-from functools import partial
-
 import jax
 import jax.numpy as jnp
 
-# Designed by benchmarks/probes/design_ns_schedule.py: (a, b) per cubic
-# step x <- a*x - b*x^3.  Valid (p >= 0, bounded by 1.2) on |x| <= 1.4;
-# saturates |sign - 1| <= 5e-9 for |x| >= 1.5e-3 (7 greedy growth steps
-# + 5 plain-NS quadratic cleanup steps).
+# (a, b) per cubic step x <- a*x - b*x^3.  Valid (p >= 0, bounded by 1.2)
+# on |x| <= 1.4; saturates |sign - 1| <= 5e-9 for |x| >= 1.5e-3 (7 greedy
+# growth steps + 5 plain-NS quadratic cleanup steps).
 NS_SCHEDULE = (
     (2.224875, 1.133054),
     (2.592197, 1.792000),
@@ -56,72 +49,20 @@ NS_SCHEDULE = (
     (1.5, 0.5),
 )
 
-_TILE = 128   # packed block-diagonal tile edge (126 used + 2 zero pad)
-_T = 4        # tiles per grid step: independent per-tile matmuls are
-              # interleaved so the MXU pipeline stays fed across the
-              # per-tile dependency chains
+TILE = 128  # packed block-diagonal tile edge
+HIGHEST = jax.lax.Precision.HIGHEST
 
 
-def _dot(a, b):
-    return jnp.dot(a, b, preferred_element_type=jnp.float32,
-                   precision=jax.lax.Precision.HIGHEST)
-
-
-def _sign_apply_kernel(x_ref, y_ref, *, schedule):
-    """y = x0 + x0 @ sign(x0) per 128x128 tile, `_T` tiles per step."""
-    x0 = [x_ref[t] for t in range(_T)]
-    z = list(x0)
-    for a, b in schedule:
-        z2 = [_dot(zt, zt) for zt in z]
-        z = [a * zt - b * _dot(z2t, zt) for zt, z2t in zip(z, z2)]
-    for t in range(_T):
-        y_ref[t] = x0[t] + _dot(x0[t], z[t])
-
-
-@partial(jax.jit, static_argnames=("schedule", "interpret"))
-def ns_sign_apply_packed(Xp: jnp.ndarray, schedule=NS_SCHEDULE,
-                         interpret: bool = False) -> jnp.ndarray:
-    """[g, 128, 128] packed block-diagonal X (||X||_2 <= 1.4 per block,
-    zero padding) -> X + X @ sign(X), all iterations VMEM-resident.
-
-    Block-diagonality is preserved exactly (off-diagonal zeros stay zero
-    under products), so callers can slice the per-block results back out.
-    """
-    from jax.experimental import pallas as pl
-
-    interpret = interpret or jax.default_backend() == "cpu"
-    if Xp.dtype != jnp.float32:
-        raise TypeError(
-            "ns_sign_apply_packed requires float32 input (the accelerated "
-            f"NS schedule amplifies input rounding; got {Xp.dtype}).  For "
-            "f64 use ns_sign_apply_packed_xla."
-        )
-    g = Xp.shape[0]
-    gp = -(-g // _T) * _T
-    if gp != g:
-        Xp = jnp.concatenate(
-            [Xp, jnp.zeros((gp - g,) + Xp.shape[1:], Xp.dtype)], axis=0
-        )
-
-    y = pl.pallas_call(
-        partial(_sign_apply_kernel, schedule=schedule),
-        grid=(gp // _T,),
-        in_specs=[pl.BlockSpec((_T, _TILE, _TILE), lambda i: (i, 0, 0))],
-        out_specs=pl.BlockSpec((_T, _TILE, _TILE), lambda i: (i, 0, 0)),
-        out_shape=jax.ShapeDtypeStruct((gp, _TILE, _TILE), jnp.float32),
-        interpret=interpret,
-    )(Xp.astype(jnp.float32))
-    return y[:g]
-
-
-def ns_sign_apply_packed_xla(Xp: jnp.ndarray,
+def ns_sign_apply_packed(Xp: jnp.ndarray,
                              schedule=NS_SCHEDULE) -> jnp.ndarray:
-    """XLA fallback with identical math (used for f64 and as an oracle).
-    Precision.HIGHEST for the same reason as the kernel (module note)."""
-    hi = jax.lax.Precision.HIGHEST
+    """[g, 128, 128] packed block-diagonal X (||X||_2 <= 1.4 per block,
+    zero padding) -> X + X @ sign(X), as batched einsums at
+    Precision.HIGHEST.  Block-diagonality is preserved exactly
+    (off-diagonal zeros stay zero under products), so callers can slice
+    the per-block results back out."""
 
     def mm(a, b):
-        return jnp.einsum("fij,fjk->fik", a, b, precision=hi)
+        return jnp.einsum("fij,fjk->fik", a, b, precision=HIGHEST)
 
     Z = Xp
     for a, b in schedule:

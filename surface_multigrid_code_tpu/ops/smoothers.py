@@ -3,7 +3,7 @@
 The reference relaxes with sequential in-place Gauss-Seidel
 (src/mg_VCycle.cpp:146-177): u_i = (b_i - sum_{j != i} a_ij u_j) / a_ii,
 consuming already-updated entries. Sequential sweeps are the wrong shape for
-TPU; the idiomatic equivalent is *multi-color* Gauss-Seidel: a host-side
+a data-parallel device; the idiomatic equivalent is *multi-color* Gauss-Seidel: a host-side
 greedy coloring partitions rows into independent sets, and within a color
 every update reads only other-color entries, so one sweep = a few
 constant-shape masked Jacobi-style updates with identical convergence
@@ -20,8 +20,7 @@ import scipy.sparse as sp
 
 import jax.numpy as jnp
 
-from surface_multigrid_code_tpu.ops.sparse import ELLMatrix, ell_spmv
-from surface_multigrid_code_tpu.ops.well import any_spmv
+from surface_multigrid_code_tpu.ops.sparse import HIGHEST, ELLMatrix, ell_spmv
 
 
 def greedy_coloring(A: sp.spmatrix) -> np.ndarray:
@@ -98,34 +97,11 @@ def multicolor_gs_sweep(
             r = b[idx] - Au
             u = u.at[idx].add(scale * r / diag[idx])
         else:
-            Au = jnp.einsum("nw,nwr->nr", rows_dat, gathered)
+            Au = jnp.einsum(
+                "nw,nwr->nr", rows_dat, gathered, precision=HIGHEST
+            )
             r = b[idx] - Au
             u = u.at[idx].add((scale / diag[idx])[:, None] * r)
-    return u
-
-
-def multicolor_gs_sweep_masked(
-    Aop,
-    diag: jnp.ndarray,
-    group_mask: tuple[jnp.ndarray, ...],
-    b: jnp.ndarray,
-    u: jnp.ndarray,
-) -> jnp.ndarray:
-    """One multi-color GS sweep via full masked SpMVs.
-
-    Mathematically identical to multicolor_gs_sweep — each color's rows
-    see the residual of the already-updated u — but the residual comes
-    from ONE full SpMV (windowed Pallas kernel, ops/well.py) plus a row
-    mask instead of per-color dynamic row gathers, which XLA:TPU
-    serializes at ~6.8 ns/element. ncolors full kernel SpMVs per sweep
-    beat the gather path ~20x at mesh scale (probe_tap_ab.py).
-    """
-    for mask in group_mask:
-        r = b - any_spmv(Aop, u)
-        if u.ndim == 1:
-            u = u + mask * (r / diag)
-        else:
-            u = u + mask[:, None] * (r / diag[:, None])
     return u
 
 
@@ -143,7 +119,7 @@ def chebyshev_smooth(
     Damps the error on the D^-1 A spectrum interval
     [lam_max / lam_ratio, lam_max] — the standard multigrid Chebyshev
     smoother (Adams et al.).  Per step it is one SpMV + axpys, no masked
-    scatters: the bandwidth-optimal smoother shape on TPU, and unlike
+    scatters: the bandwidth-optimal smoother shape, and unlike
     Gauss-Seidel it is order-independent so it shards cleanly.
     """
     lam_min = lam_max / lam_ratio
@@ -153,7 +129,7 @@ def chebyshev_smooth(
     def dinv(v):
         return v / diag if v.ndim == 1 else v / diag[:, None]
 
-    r = dinv(b - any_spmv(A, u))
+    r = dinv(b - ell_spmv(A, u))
     alpha = 1.0 / theta
     d = alpha * r
     u = u + d
@@ -161,7 +137,7 @@ def chebyshev_smooth(
     rho = 1.0 / sigma
     for _ in range(degree - 1):
         rho_new = 1.0 / (2.0 * sigma - rho)
-        r = dinv(b - any_spmv(A, u))
+        r = dinv(b - ell_spmv(A, u))
         d = rho_new * rho * d + (2.0 * rho_new / delta) * r
         u = u + d
         rho = rho_new
@@ -175,10 +151,8 @@ def jacobi_sweep(
     u: jnp.ndarray,
     weight: float = 2.0 / 3.0,
 ) -> jnp.ndarray:
-    """One damped-Jacobi sweep: u += w * D^-1 (b - A u).
-
-    A may be an ELLMatrix or a windowed-ELL WellMatrix (ops/well.py)."""
-    r = b - any_spmv(A, u)
+    """One damped-Jacobi sweep: u += w * D^-1 (b - A u)."""
+    r = b - ell_spmv(A, u)
     if u.ndim == 1:
         return u + weight * r / diag
     return u + weight * r / diag[:, None]

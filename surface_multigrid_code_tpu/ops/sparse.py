@@ -1,11 +1,16 @@
 """Device sparse-matrix containers (ELL / padded-row format) and SpMV.
 
 Design: the reference keeps Eigen CSC matrices and does sequential sweeps
-(src/mg_VCycle.cpp:146-177). On TPU the right layout is a fixed-width
+(src/mg_VCycle.cpp:146-177). On the device the layout is a fixed-width
 padded row format (ELL): cotan Laplacians have ~7 nnz/row and prolongation
 operators <= 3 nnz/row, so padding waste is tiny and every row becomes a
-constant-shape gather + reduce, which XLA tiles onto the VPU at
-HBM-bandwidth. Padding entries point at row 0 with weight 0.
+constant-shape gather + reduce, which XLA fuses into one pass over the
+values, indices and gathered vector entries. Padding entries point at row
+0 with weight 0.
+
+Multi-column products run at Precision.HIGHEST: an f32 einsum may
+otherwise run in TF32 on the GPU (~3 decimal digits), which would stall
+the solver's residual stop tests.
 
 ELLMatrix is a JAX pytree: (indices, data) dynamic, shape static.
 """
@@ -20,6 +25,7 @@ import scipy.sparse as sp
 import jax
 import jax.numpy as jnp
 
+HIGHEST = jax.lax.Precision.HIGHEST
 
 @jax.tree_util.register_pytree_node_class
 @dataclass
@@ -102,7 +108,7 @@ def ell_spmv(A: ELLMatrix, x: jnp.ndarray) -> jnp.ndarray:
     gathered = x[A.indices]  # [n, w] or [n, w, nrhs]
     if x.ndim == 1:
         return (A.data * gathered).sum(axis=1)
-    return jnp.einsum("nw,nwr->nr", A.data, gathered)
+    return jnp.einsum("nw,nwr->nr", A.data, gathered, precision=HIGHEST)
 
 
 def ell_spmv_rows(
@@ -114,4 +120,4 @@ def ell_spmv_rows(
     gathered = x[idx]
     if x.ndim == 1:
         return (dat * gathered).sum(axis=1)
-    return jnp.einsum("nw,nwr->nr", dat, gathered)
+    return jnp.einsum("nw,nwr->nr", dat, gathered, precision=HIGHEST)

@@ -44,11 +44,7 @@ class ShardedBalloonNewton:
         cfg: SolveConfig | None = None,
         dtype=None,
         reorder: bool = True,
-        backend: str = "well",
     ):
-        """backend: "well" (default) = windowed-Pallas band-segment halos
-        with the slot-space value refresh (parallel/wellhalo.py);
-        "halo" = the ELL publish-slot reference path."""
         if dtype is None:
             # x64-aware default: requesting f64 under a non-x64 runtime
             # would make JAX silently truncate every downstream asarray/
@@ -71,26 +67,9 @@ class ShardedBalloonNewton:
         )
         Ps = [mg[lv].P_full.tocsr() for lv in range(1, len(mg))]
         As = galerkin_chain(A0, Ps)
-        if backend == "well":
-            from surface_multigrid_code_tpu.parallel.wellhalo import (
-                WellHaloHierarchy,
-            )
-
-            if not reorder:
-                raise ValueError(
-                    "backend='well' always applies the induced-RCM "
-                    "ordering (the windowed kernel requires banded "
-                    "operators); pass backend='halo' for reorder=False"
-                )
-            self.halo = WellHaloHierarchy(
-                As, Ps, mesh, cfg=cfg, dtype=dtype
-            ).enable_refresh()
-        elif backend == "halo":
-            self.halo = HaloHierarchy(
-                As, Ps, mesh, cfg=cfg, dtype=dtype, reorder=reorder
-            ).enable_refresh()
-        else:
-            raise ValueError(f"unknown backend {backend!r} (well|halo)")
+        self.halo = HaloHierarchy(
+            As, Ps, mesh, cfg=cfg, dtype=dtype, reorder=reorder
+        ).enable_refresh()
 
     def hessian_values(self, x_flat, dt):
         return self.asm.hessian_values(x_flat, dt)

@@ -1,12 +1,7 @@
 """Explicit halo-exchange multigrid over a 1-D device mesh (shard_map).
 
-ROLE: CORRECTNESS REFERENCE.  The per-shard SpMVs here ride the XLA ELL
-gather, which this TPU executes serially (~6.8 ns/element) — ~100x off
-the windowed Pallas kernel at mesh scale.  The production multi-chip
-path is parallel/wellhalo.py (band-segment halos + the windowed kernel,
-including the sharded value refresh); this module stays as the
-publish-slot exchange reference whose residual histories every kernel
-path must reproduce.
+This is the multi-device path of the sharded steppers (parallel/mcf.py,
+parallel/balloon.py), including the sharded value refresh.
 
 parallel/spmd.py lets GSPMD insert collectives automatically; this module
 is the hand-scheduled version: every level's rows are partitioned into
@@ -44,6 +39,7 @@ import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from surface_multigrid_code_tpu.config import SolveConfig, SmootherType
+from surface_multigrid_code_tpu.ops.sparse import HIGHEST
 
 
 def _pad_to(n: int, mult: int) -> int:
@@ -435,7 +431,7 @@ class HaloHierarchy:
             g = xx[idx]                         # [R, w] or [R, w, k]
             if g.ndim == 2:
                 return (dat * g).sum(axis=1)
-            return jnp.einsum("rw,rwk->rk", dat, g)
+            return jnp.einsum("rw,rwk->rk", dat, g, precision=HIGHEST)
 
         def Ax(lv, x_l):
             xx = exchange(lv, x_l)
@@ -474,7 +470,7 @@ class HaloHierarchy:
                 # replicate the coarse rhs, dense solve, slice back
                 b_all = jax.lax.all_gather(b_l, "rows")
                 b_all = b_all.reshape((-1,) + b_l.shape[1:])
-                u_all = coarse_inv @ b_all
+                u_all = jnp.matmul(coarse_inv, b_all, precision=HIGHEST)
                 me = jax.lax.axis_index("rows")
                 R = Rs[lv]
                 if b_l.ndim == 1:

@@ -1,13 +1,13 @@
 """Multi-chip mean-curvature flow: halo-partitioned per-step solves.
 
-Single-chip MCF (models/mcf.py) runs the whole step as one jitted program.
-Beyond ~1M vertices the system outgrows one chip; this stepper keeps the
+Single-device MCF (models/mcf.py) runs the whole step as one jitted
+program.  This stepper keeps the
 reference semantics (05_example_mean_curvature_flow/main.cpp:53-80 — per
 step solve (M - delta*L) U = M U_pre with L fixed, then re-normalize
 area) but routes the solve through `HaloHierarchy.solve_values`: the
 finest nnz values are re-assembled each step from the current positions
 and every Galerkin level is refreshed *inside* the sharded program, so
-per-step work on each chip is O(rows/D) with one halo all-gather per
+per-step work on each device is O(rows/D) with one halo all-gather per
 SpMV.
 
 Host work per step is O(n) numpy assembly (face areas -> lumped mass ->
@@ -58,13 +58,7 @@ class ShardedMCFStepper:
         cfg: SolveConfig | None = None,
         dtype=jnp.float32,
         reorder: bool = True,
-        backend: str = "well",
     ):
-        """backend: "well" (default) = windowed-Pallas band-segment halos
-        with the slot-space value refresh (parallel/wellhalo.py — every
-        SpMV and the per-step Galerkin rebuild run on the kernel);
-        "halo" = the ELL publish-slot path (parallel/halo.py, the
-        correctness reference whose gathers are serial on this TPU)."""
         self.F = np.asarray(F, dtype=np.int64)
         self.delta = float(delta)
         self.mg_tol = float(mg_tol)
@@ -87,26 +81,9 @@ class ShardedMCFStepper:
         # symbolic-pattern chain: SSP prolongations carry exact-zero weights
         # whose products scipy would drop, de-syncing the refresh plan
         As = galerkin_chain(A0, Ps)
-        if backend == "well":
-            from surface_multigrid_code_tpu.parallel.wellhalo import (
-                WellHaloHierarchy,
-            )
-
-            if not reorder:
-                raise ValueError(
-                    "backend='well' always applies the induced-RCM "
-                    "ordering (the windowed kernel requires banded "
-                    "operators); pass backend='halo' for reorder=False"
-                )
-            self.halo = WellHaloHierarchy(
-                As, Ps, mesh, cfg=cfg, dtype=dtype
-            ).enable_refresh()
-        elif backend == "halo":
-            self.halo = HaloHierarchy(
-                As, Ps, mesh, cfg=cfg, dtype=dtype, reorder=reorder
-            ).enable_refresh()
-        else:
-            raise ValueError(f"unknown backend {backend!r} (well|halo)")
+        self.halo = HaloHierarchy(
+            As, Ps, mesh, cfg=cfg, dtype=dtype, reorder=reorder
+        ).enable_refresh()
 
     def step(self, U: np.ndarray):
         """One flow step; returns (U_next, r_his list, converged)."""

@@ -6,7 +6,7 @@ matrix rows (mesh vertices) are partitioned into contiguous blocks across a
 1-D `jax.sharding.Mesh` axis ("rows"), vectors are sharded the same way,
 and the jitted V-cycle runs under GSPMD, which inserts the gather/reduce
 collectives for the off-block vector entries (the 1-ring / P-stencil halo)
-over ICI.  The coarsest level's dense pseudo-inverse is replicated.
+between devices.  The coarsest level's dense pseudo-inverse is replicated.
 
 Row counts are padded per level to a multiple of the axis size with
 identity rows (diag 1, rhs 0), so all blocks are equal-shape and XLA sees
@@ -14,12 +14,9 @@ static shapes.  The smoother for the sharded path is damped Jacobi — one
 fused SpMV + axpy per sweep, the bandwidth-optimal shape at scale — rather
 than multi-color Gauss-Seidel whose color groups shard irregularly.
 
-ROLE: CORRECTNESS REFERENCE.  This path (like parallel/halo.py) runs its
-per-shard SpMVs on the XLA ELL gather, which this TPU executes serially
-(~6.8 ns/element) — ~100x off the windowed Pallas kernel at mesh scale.
-The production multi-chip path is parallel/wellhalo.py (band-segment
-halos + the windowed kernel, including the sharded value refresh); keep
-this one for GSPMD cross-checks and as the simplest sharding spec.
+ROLE: the simplest sharding spec and the GSPMD cross-check of the
+hand-scheduled halo exchange in parallel/halo.py, which the sharded
+steppers use.
 """
 
 from __future__ import annotations
@@ -36,6 +33,7 @@ from surface_multigrid_code_tpu.ops.sparse import ELLMatrix, ell_from_csr
 from surface_multigrid_code_tpu.solver.vcycle import (
     DeviceHierarchy,
     DeviceLevel,
+    _power_iteration_lam_max,
     solve_loop,
 )
 
@@ -70,8 +68,10 @@ def build_sharded_hierarchy(
 
     As: per-level Galerkin matrices (finest first), Ps[l]: level l+1 -> l.
     Returns (hierarchy, padded_sizes).  The returned hierarchy is a normal
-    DeviceHierarchy whose leaves carry NamedShardings — the single-chip
+    DeviceHierarchy whose leaves carry NamedShardings — the single-device
     jitted V-cycle (solver/vcycle.py) runs on it unchanged under GSPMD.
+    cfg: a Chebyshev smoother gets each level's lam_max(D^-1 A) bound from
+    the unpadded operator (the same estimate parallel/halo.py uses).
     """
     ndev = mesh.shape["rows"]
     row_sharded = NamedSharding(mesh, P("rows", None))
@@ -106,6 +106,11 @@ def build_sharded_hierarchy(
                 data=jax.device_put(pte.data, row_sharded),
                 n_cols=sizes[lv - 1],
             )
+        lam_max = None
+        if cfg is not None and cfg.smoother == SmootherType.CHEBYSHEV:
+            lam_max = jnp.asarray(
+                _power_iteration_lam_max(As[lv].tocsr()), dtype=dtype
+            )
         levels.append(
             DeviceLevel(
                 A=ell,
@@ -114,6 +119,7 @@ def build_sharded_hierarchy(
                 PT=PT,
                 groups=(),
                 group_scale=(),
+                lam_max=lam_max,
             )
         )
     Ac = np.asarray(

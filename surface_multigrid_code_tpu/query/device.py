@@ -1,11 +1,11 @@
-"""Device-resident SSP query engine (vmapped walks on TPU).
+"""Device-resident SSP query engine (vmapped walks on the accelerator).
 
 The reference fans the per-point map walks out over CPU threads
 (igl::parallel_for grain 1000, src/query_fine_to_coarse.cpp:23-127).  Here
 the flattened collapse log is padded to fixed per-collapse sizes (one-ring
 patches are tiny: <= ~12 vertices/faces) and every query runs the walk as
-a `lax.while_loop` under `vmap` — thousands of points advance in lockstep
-on the VPU, with masked updates for finished lanes.
+a `lax.while_loop` under `vmap` — thousands of points advance in lockstep,
+with masked updates for finished lanes.
 
 Semantics identical to the host walk (query/maps.py): forward walks apply
 collapses in increasing order via the face->collapse index (decIM),
@@ -259,7 +259,7 @@ _query_bwd = jax.jit(
 
 
 def query_fine_to_coarse_device(dlog: DeviceCollapseLog, BC, BF, FIdx):
-    """TPU query: fine -> coarse; same contract as query/maps.py."""
+    """Device query: fine -> coarse; same contract as query/maps.py."""
     BC = jnp.asarray(BC, dtype=jnp.float32)
     BF = jnp.asarray(BF, dtype=jnp.int32)
     FIdx = jnp.asarray(FIdx, dtype=jnp.int32)
@@ -272,7 +272,7 @@ def query_fine_to_coarse_device(dlog: DeviceCollapseLog, BC, BF, FIdx):
 
 
 def query_coarse_to_fine_device(dlog: DeviceCollapseLog, BC, BF, FIdx):
-    """TPU query: coarse -> fine; same contract as query/maps.py."""
+    """Device query: coarse -> fine; same contract as query/maps.py."""
     BC = jnp.asarray(BC, dtype=jnp.float32)
     BF = jnp.asarray(dlog.im[jnp.asarray(BF, dtype=jnp.int32)], dtype=jnp.int32)
     FIdx = jnp.asarray(dlog.imf[jnp.asarray(FIdx, dtype=jnp.int32)], dtype=jnp.int32)

@@ -1,13 +1,11 @@
 """Block-sparse (BSR, 3x3 blocks) multigrid for vertex-vector systems.
 
 The balloon sim solves H dx = -g with H = M + dt^2 K on 3#V DOFs
-(reference implicit_euler_mg_balloon.h:67-78).  Expanding such systems to
-a scalar 3#V-row ELL is catastrophically slow on TPU: the wide
-(w~36) scalar gathers fall off Mosaic's fast gather path and the V-cycle
-runs ~95 ms/cycle on bunny_15K.  Stored as BSR — vertex-graph indices
-[nv, w<=12] gathering ROWS of x [nv, 3] plus a 3x3 block einsum — the
-same SpMV measures 0.028 ms vs 33 ms scalar-expanded (1175x; see
-CLAUDE.md "Measured TPU gather facts").
+(reference implicit_euler_mg_balloon.h:67-78).  Expanded to a scalar
+3#V-row ELL, every row gathers ~36 scattered scalars.  Stored as BSR —
+vertex-graph indices [nv, w<=12] gathering ROWS of x [nv, 3] plus a 3x3
+block einsum — the same SpMV reads a third of the indices and gathers
+contiguous 3-vectors.
 
 This module provides the BSR analog of solver/vcycle.py + refresh.py:
   - BSRMatrix + bsr_spmv
@@ -21,7 +19,7 @@ This module provides the BSR analog of solver/vcycle.py + refresh.py:
 
 from __future__ import annotations
 
-import warnings
+import functools
 from dataclasses import dataclass
 
 import numpy as np
@@ -31,7 +29,12 @@ import jax
 import jax.numpy as jnp
 
 from surface_multigrid_code_tpu.config import SolveConfig, SmootherType
-from surface_multigrid_code_tpu.ops.sparse import ELLMatrix, ell_from_csr, ell_spmv
+from surface_multigrid_code_tpu.ops.sparse import (
+    HIGHEST,
+    ELLMatrix,
+    ell_from_csr,
+    ell_spmv,
+)
 from surface_multigrid_code_tpu.solver.galerkin import (
     GalerkinPlan,
     build_galerkin_plan,
@@ -67,7 +70,7 @@ class BSRMatrix:
 def bsr_spmv(A: BSRMatrix, x: jnp.ndarray) -> jnp.ndarray:
     """y = A @ x with x [nv, 3]: one row gather + 3x3 block contraction."""
     g = x[A.indices]  # [nv, w, 3]
-    return jnp.einsum("nwij,nwj->ni", A.blocks, g)
+    return jnp.einsum("nwij,nwj->ni", A.blocks, g, precision=HIGHEST)
 
 
 @jax.tree_util.register_pytree_node_class
@@ -78,20 +81,9 @@ class BsrLevel:
     P: ELLMatrix | None      # scalar-weight vertex prolongation (to finer)
     PT: ELLMatrix | None
     lam_max: jnp.ndarray | None = None
-    # windowed-kernel route (well mode): Aw = structural layout tuple of
-    # the VERTEX pattern, dats = per-group 9-tuples of packed block
-    # component planes (ops/well.well_spmv_block3); Pw/PTw = scalar
-    # transfer layouts (planes kernel); dinv_p = 1/diag as [3, npad]
-    # planes for the smoother updates
-    Aw: object | None = None
-    dats: tuple | None = None
-    Pw: object | None = None
-    PTw: object | None = None
-    dinv_p: jnp.ndarray | None = None
 
     def tree_flatten(self):
-        return (self.A, self.diag, self.P, self.PT, self.lam_max,
-                self.Aw, self.dats, self.Pw, self.PTw, self.dinv_p), None
+        return (self.A, self.diag, self.P, self.PT, self.lam_max), None
 
     @classmethod
     def tree_unflatten(cls, aux, children):
@@ -150,7 +142,9 @@ def bsr_vcycle(hier: BsrHierarchy, b, u, cfg: SolveConfig):
         level = hier.levels[lv]
         if lv == hier.n_levels - 1:
             nc = level.A.n_rows
-            corr = (hier.coarse_inv @ B.reshape(3 * nc)).reshape(nc, 3)
+            corr = jnp.matmul(
+                hier.coarse_inv, B.reshape(3 * nc), precision=HIGHEST
+            ).reshape(nc, 3)
             return U + corr
         U = _bsr_relax(level, B, U, cfg, cfg.pre_relax_iter)
         r = B - bsr_spmv(level.A, U)
@@ -165,136 +159,12 @@ def bsr_vcycle(hier: BsrHierarchy, b, u, cfg: SolveConfig):
     return go(0, b, u)
 
 
-import functools
-
-
-def _bsr_well_spmv(level: BsrLevel, xp):
-    """Block SpMV on the windowed kernel, planes [3, npad] in/out."""
-    from surface_multigrid_code_tpu.ops.well import well_block3_apply
-
-    return well_block3_apply(level.Aw, xp, level.dats)
-
-
-def _bsr_relax_planes(level: BsrLevel, bp, up, cfg: SolveConfig,
-                      n_iter: int):
-    """Smoother iterations with the residual scaling fused into the
-    block3 kernel epilogue (epi="resid_scaled"/"axpby", ops/well.py):
-    each iteration is one kernel dispatch per group, with only the cheap
-    Chebyshev 2-term recurrence left as XLA elementwise."""
-    from surface_multigrid_code_tpu.ops.well import well_block3_apply
-
-    dinv = level.dinv_p
-
-    def resid_scaled(up):
-        return well_block3_apply(
-            level.Aw, up, level.dats, epi="resid_scaled", b=bp, s=dinv
-        )
-
-    if cfg.smoother == SmootherType.CHEBYSHEV and level.lam_max is not None:
-        lam_max = level.lam_max
-        lam_min = lam_max / 4.0
-        theta = 0.5 * (lam_max + lam_min)
-        delta = 0.5 * (lam_max - lam_min)
-        r = resid_scaled(up)
-        d = r / theta
-        up = up + d
-        sigma = theta / delta
-        rho = 1.0 / sigma
-        for _ in range(n_iter - 1):
-            rho_new = 1.0 / (2.0 * sigma - rho)
-            r = resid_scaled(up)
-            d = rho_new * rho * d + (2.0 * rho_new / delta) * r
-            up = up + d
-            rho = rho_new
-        return up
-    for _ in range(n_iter):
-        up = well_block3_apply(
-            level.Aw, up, level.dats, epi="axpby", u=up, b=bp,
-            s=cfg.jacobi_weight * dinv,
-        )
-    return up
-
-
-def bsr_vcycle_planes(hier: BsrHierarchy, bp, up, cfg: SolveConfig):
-    """V-cycle on [3, npad] PLANES (windowed-kernel route): the block
-    smoother/residual run on well_spmv_block3 (shared select chain for
-    all 9 components), restriction/prolongation on the scalar planes
-    kernel — the XLA row gathers of bsr_spmv are off the hot path."""
-    from surface_multigrid_code_tpu.ops.well import well_apply
-
-    L = hier.n_levels
-
-    def go(lv, B, U):
-        level = hier.levels[lv]
-        if lv == L - 1:
-            nc = level.A.n_rows
-            b3 = B[:, :nc].T.reshape(3 * nc)
-            u3 = (hier.coarse_inv @ b3).reshape(nc, 3).T
-            return U.at[:, :nc].add(u3)
-        from surface_multigrid_code_tpu.ops.well import well_block3_apply
-
-        U = _bsr_relax_planes(level, B, U, cfg, cfg.pre_relax_iter)
-        r = well_block3_apply(level.Aw, U, level.dats, epi="resid", b=B)
-        nxt = hier.levels[lv + 1]
-        rc = well_apply(nxt.PTw, r, unpadded=False)
-        uc = go(lv + 1, rc, jnp.zeros_like(rc))
-        U = well_apply(nxt.Pw, uc, epi="add", u=U, unpadded=False)
-        return _bsr_relax_planes(level, B, U, cfg, cfg.post_relax_iter)
-
-    return go(0, bp, up)
-
-
 @functools.partial(jax.jit, static_argnames=("max_iter", "cfg"))
 def bsr_solve_loop(hier: BsrHierarchy, rhs, z0, tol, max_iter: int,
                    cfg: SolveConfig):
     """V-cycle iteration with residual history (reference
     src/min_quad_with_fixed_mg.cpp:324-339 semantics: absolute 2-norm over
-    all 3nv entries, pre-cycle residual recording).
-
-    Windowed hierarchies (levels carry Aw/dats) run the whole loop in
-    planes layout on the block kernel."""
-    lv0 = hier.levels[0]
-    if lv0.Aw is not None:
-        from surface_multigrid_code_tpu.ops.well import B_ROWS
-
-        nv = lv0.A.n_rows
-        W0 = lv0.Aw[0] if isinstance(lv0.Aw, tuple) else lv0.Aw
-        npad = W0.nb * B_ROWS
-
-        def to_planes(x):
-            out = jnp.zeros((3, npad), dtype=x.dtype)
-            return jax.lax.dynamic_update_slice(out, x.T, (0, 0))
-
-        rp = to_planes(rhs)
-        zp = to_planes(z0)
-
-        def resid(z):
-            from surface_multigrid_code_tpu.ops.well import (
-                well_block3_apply,
-            )
-
-            r = well_block3_apply(lv0.Aw, z, lv0.dats, epi="resid", b=rp)
-            return jnp.sqrt((r * r).sum())
-
-        def cond(state):
-            k, _, _, done = state
-            return jnp.logical_and(~done, k < max_iter)
-
-        def body(state):
-            k, z, r_his, _ = state
-            res = resid(z)
-            r_his = r_his.at[k].set(res)
-            done = res < tol
-            z_new = bsr_vcycle_planes(hier, rp, z, cfg)
-            z = jnp.where(done, z, z_new)
-            return (k + 1, z, r_his, done)
-
-        r_his0 = jnp.zeros((max_iter,), dtype=rhs.dtype)
-        k, zp, r_his, _ = jax.lax.while_loop(
-            cond, body, (0, zp, r_his0, jnp.asarray(False))
-        )
-        return zp[:, :nv].T, r_his, k
-
+    all 3nv entries, pre-cycle residual recording)."""
     def resid(z):
         r = rhs - bsr_spmv(hier.levels[0].A, z)
         return jnp.sqrt((r * r).sum())
@@ -324,10 +194,9 @@ def _bsr_gershgorin_lam(A: BSRMatrix, diag):
     max_i sum_j |a_ij| / d_i over the 3nv scalar rows.
 
     Guaranteed-safe (can never underestimate) but LOOSE on shell
-    Hessians: measured on bunny_15K at pressure 1e6 the bound widens the
-    window enough that the tol-2e-1 solve stops converging within 20
-    cycles where the power-iteration estimate needs 12
-    (probe_balloon_profile_r3.py solve_cycles_gersh/power).  With the
+    Hessians: on bunny_15K at pressure 1e6 the bound widens the window
+    enough that the tol-2e-1 solve needs more cycles than with the
+    power-iteration estimate.  With the
     per-face PSD projection (models/shell.psd_project_blocks) removing
     the indefiniteness that actually diverged the smoother, power
     iteration + 10% margin is the default; this bound is kept for
@@ -392,144 +261,31 @@ class BsrRefreshableSolver:
     """Fixed SCALAR hierarchy + fixed vertex sparsity; per-solve 3x3-block
     value refresh.  mg is from mg_precompute (vertex-level, NOT the
     3-expanded mg_precompute_block); pattern_v the vertex-graph CSR whose
-    sparsity every refreshed block matrix shares (diagonal required).
-
-    well=True (default off-CPU) permutes the hierarchy with the induced
-    RCM ordering and runs the Galerkin value refresh as windowed-kernel
-    SpMVs (solver/wellrefresh.py) instead of XLA gathers — the gathers
-    are serial on this TPU and dominate the balloon step
-    (probe_balloon_parts.py: 79 ms/refresh vs 3.4 ms/V-cycle).  Public
-    inputs/outputs stay in the caller's ordering: `vperm` / `nnz_perm`
-    expose the vertex and nnz permutations for callers (the balloon
-    stepper) that want to assemble directly in kernel order."""
+    sparsity every refreshed block matrix shares (diagonal required)."""
 
     def __init__(self, mg, pattern_v: sp.spmatrix,
                  cfg: SolveConfig | None = None, dtype=jnp.float32,
-                 coarsest_shift: float = 1e-12, well: bool | None = None):
-        from surface_multigrid_code_tpu.solver.ordering import (
-            finest_rcm,
-            induced_orderings,
-        )
-        from surface_multigrid_code_tpu.solver.wellrefresh import (
-            WellRefreshChain,
-        )
-
+                 coarsest_shift: float = 1e-12):
         self.cfg = cfg or SolveConfig(smoother=SmootherType.CHEBYSHEV)
         assert self.cfg.smoother in (
             SmootherType.CHEBYSHEV, SmootherType.JACOBI
         ), "BSR path supports pointwise smoothers (Chebyshev/Jacobi)"
         self.dtype = dtype
-        if well is None:
-            well = jax.default_backend() != "cpu"
-        self.well = bool(well)
         Av = pattern_v.tocsr().copy()
         Av.sum_duplicates()
         Ps = [mg[lv].P_full.tocsr() for lv in range(1, len(mg))]
-        self.vperm = None
-        self.nnz_perm = None
-        if self.well:
-            perms = induced_orderings(finest_rcm(Av), Ps)
-            self.vperm = perms[0]
-            ip = np.empty_like(self.vperm)
-            ip[self.vperm] = np.arange(self.vperm.shape[0])
-            rows_o = np.repeat(np.arange(Av.shape[0]), np.diff(Av.indptr))
-            cols_o = Av.indices.copy()
-            Av = Av[self.vperm][:, self.vperm].tocsr()
-            Av.sum_duplicates()
-            Ps = [
-                P[perms[lv]][:, perms[lv + 1]].tocsr()
-                for lv, P in enumerate(Ps)
-            ]
-            # nnz_perm[k_new] = old nnz id whose value lands at new slot k
-            from surface_multigrid_code_tpu.solver.refresh import (
-                csr_slot_map,
-            )
-
-            new_of_old = csr_slot_map(Av, ip[rows_o], ip[cols_o])
-            self.nnz_perm = np.empty(Av.nnz, dtype=np.int64)
-            self.nnz_perm[new_of_old] = np.arange(Av.nnz)
         self.pattern_v = Av
         self.coarsest_shift = float(coarsest_shift)
-        self.chain = None
-        self.refresh_fallback_reason = None
-        if self.well:
-            from surface_multigrid_code_tpu.solver.wellrefresh import (
-                ChainTooWide,
-            )
-
-            try:
-                self.chain = WellRefreshChain(Av, Ps, dtype=dtype)
-            except ChainTooWide as e:
-                # boundary-heavy hierarchies can need 100s of chain
-                # kernel groups (minutes of Mosaic compile each) — fall
-                # back to the XLA plan-gather refresh; the ordering/
-                # permutation machinery stays (harmless without the
-                # chain).  Loud per SURVEY §5.3: the fallback refresh
-                # is the dominant per-step cost on such meshes.
-                self.chain = None
-                self.refresh_fallback_reason = str(e)
-                warnings.warn(
-                    "windowed refresh chain unavailable for this "
-                    f"hierarchy ({e}); falling back to the XLA "
-                    "plan-gather value refresh (slower per refresh)",
-                    RuntimeWarning,
-                    stacklevel=2,
-                )
-        if self.chain is not None:
-            # windowed V-cycle route: structural layouts of each level's
-            # VERTEX pattern for the 3x3-block kernel + scalar transfer
-            # layouts (all static; the refresh only repacks block values)
-            from surface_multigrid_code_tpu.ops.well import (
-                _UNROLL_CAP,
-                build_well_auto,
-            )
-
-            self._state = {
-                "chain": self.chain.state(),
-                "P_ell": tuple(ell_from_csr(P, dtype=dtype) for P in Ps),
-                "PT_ell": tuple(
-                    ell_from_csr(P.T.tocsr(), dtype=dtype) for P in Ps
-                ),
-                # the block3 kernel body is ~3x the scalar select chain
-                # plus 9 dat FMAs per tap, and well_spmv_block3 has no
-                # per-column fallback — build the vertex-pattern layouts
-                # under a third of the scalar unroll budget so a wide
-                # hub-row operator splits into more groups instead of
-                # overflowing Mosaic's scoped-VMEM compile budget
-                "A_wells": tuple(
-                    build_well_auto(pat, dtype=dtype, cap=_UNROLL_CAP // 3)
-                    for pat in self.chain.patterns
-                ),
-                "P_wells": tuple(
-                    build_well_auto(P, dtype=dtype) for P in Ps
-                ),
-                "PT_wells": tuple(
-                    build_well_auto(P.T.tocsr(), dtype=dtype) for P in Ps
-                ),
-            }
-            if self.nnz_perm is not None:
-                self._state["nnz_perm"] = jnp.asarray(self.nnz_perm)
-        else:
-            self.plan: GalerkinPlan = build_galerkin_plan(Av, Ps)
-            self._state = {
-                "plan": self.plan,
-                "P_ell": tuple(ell_from_csr(P, dtype=dtype) for P in Ps),
-                "PT_ell": tuple(
-                    ell_from_csr(P.T.tocsr(), dtype=dtype) for P in Ps
-                ),
-            }
-            if self.nnz_perm is not None:
-                self._state["nnz_perm"] = jnp.asarray(self.nnz_perm)
+        self.plan: GalerkinPlan = build_galerkin_plan(Av, Ps)
+        self._state = {
+            "plan": self.plan,
+            "P_ell": tuple(ell_from_csr(P, dtype=dtype) for P in Ps),
+            "PT_ell": tuple(
+                ell_from_csr(P.T.tocsr(), dtype=dtype) for P in Ps
+            ),
+        }
         self._refresh = jax.jit(self._refresh_impl)
         self._solve = jax.jit(self._solve_impl, static_argnames=("max_iter",))
-
-    @property
-    def refresh_backend(self) -> str:
-        """Which value-refresh path this hierarchy actually got (SURVEY
-        §5.3 soft-failure reporting): "chain" = windowed slot-space
-        kernel chain, "plan-gather" = XLA gather plan (CPU runs or a
-        ChainTooWide fallback — see refresh_fallback_reason)."""
-        return "chain" if self.chain is not None else "plan-gather"
 
     # ------------------------------------------------------------------
     def _lam(self, A, diag3, lv, n_levels, lam_in):
@@ -539,106 +295,6 @@ class BsrRefreshableSolver:
             return lam_in[lv]
         return _bsr_device_lam_max(A, diag3,
                                    iters=self.cfg.lam_power_iters)
-
-    def _refresh_well(self, state, B0_vals: jnp.ndarray,
-                      lam_in=None) -> BsrHierarchy:
-        """Value refresh via the windowed-kernel slot chain: zero dynamic
-        gathers on the value path (see solver/wellrefresh.py).  Also
-        repacks each level's 9 block-component planes into the block
-        kernel's dat layout (pure reshapes), so the V-cycle runs on
-        well_spmv_block3 instead of the gather-bound bsr_spmv."""
-        from surface_multigrid_code_tpu.ops.well import (
-            B_ROWS,
-            well_block3_apply,
-            well_repack,
-        )
-
-        chain = self.chain
-        cst = state["chain"]
-        v = B0_vals.astype(self.dtype)
-        v9 = v.reshape(v.shape[0], 9).T  # planes [9, nnz], plane p = 3d+c
-        planes = chain.apply_planes(cst, v9)
-        dplanes = jnp.asarray([0, 4, 8])
-        levels = []
-        L = len(planes)
-        for lv, y9 in enumerate(planes):
-            n, w = chain.ell_shapes[lv]
-            blocks = y9.T.reshape(n, w, 3, 3)
-            diag3 = y9[dplanes][:, cst["diag_slots"][lv]].T  # [n, 3]
-            A = BSRMatrix(
-                indices=cst["ell_indices"][lv], blocks=blocks, n_cols=n
-            )
-            Aw = state["A_wells"][lv]
-            Wt = Aw if isinstance(Aw, tuple) else (Aw,)
-            dats_groups = []
-            k0 = 0
-            for Wg in Wt:
-                # y9 planes are [9, n*w] slot space; slice this group's
-                # slots per component and repack (reshape only)
-                dats_groups.append(tuple(
-                    well_repack(
-                        Wg,
-                        y9[3 * i + j]
-                        .reshape(n, w)[:, k0:k0 + Wg.w]
-                        .astype(self.dtype),
-                    ).dat
-                    for i in range(3)
-                    for j in range(3)
-                ))
-                k0 += Wg.w
-            dats_groups = tuple(dats_groups)
-            W0 = Wt[0]
-            npad = W0.nb * B_ROWS
-            dinv_p = jnp.zeros((3, npad), dtype=self.dtype)
-            dinv_p = jax.lax.dynamic_update_slice(
-                dinv_p, (1.0 / diag3).T.astype(self.dtype), (0, 0)
-            )
-            lam_max = None
-            if (
-                self.cfg.smoother == SmootherType.CHEBYSHEV and lv < L - 1
-            ):
-                if lam_in is not None and lam_in[lv] is not None:
-                    lam_max = lam_in[lv]
-                else:
-                    # power iteration on the BLOCK KERNEL (same 12-iter /
-                    # uniform-start / 1.1x estimator as _bsr_device_lam_max)
-                    x0 = jnp.zeros((3, npad), dtype=self.dtype)
-                    x0 = jax.lax.dynamic_update_slice(
-                        x0,
-                        jnp.full((3, n), 1.0, dtype=self.dtype)
-                        / jnp.sqrt(jnp.asarray(3.0 * n, dtype=self.dtype)),
-                        (0, 0),
-                    )
-
-                    def pw_body(i, xl, Wt=Wt, dg=dats_groups,
-                                dinv_p=dinv_p):
-                        x, lam = xl
-                        y = well_block3_apply(Wt, x, dg) * dinv_p
-                        lam = jnp.sqrt((y * y).sum())
-                        return (y / lam, lam)
-
-                    _, lam = jax.lax.fori_loop(
-                        0, self.cfg.lam_power_iters, pw_body,
-                        (x0, jnp.asarray(1.0, self.dtype)),
-                    )
-                    lam_max = 1.1 * lam
-            levels.append(
-                BsrLevel(
-                    A=A, diag=diag3,
-                    P=None if lv == 0 else state["P_ell"][lv - 1],
-                    PT=None if lv == 0 else state["PT_ell"][lv - 1],
-                    lam_max=lam_max,
-                    Aw=Wt, dats=dats_groups,
-                    Pw=None if lv == 0 else state["P_wells"][lv - 1],
-                    PTw=None if lv == 0 else state["PT_wells"][lv - 1],
-                    dinv_p=dinv_p,
-                )
-            )
-        # dense coarsest (3nc x 3nc) + Cholesky inverse (SPD refreshes)
-        nc, w = chain.ell_shapes[-1]
-        blocks = levels[-1].A.blocks
-        inv = self._coarse_inverse(nc, w, cst["ell_indices"][-1], blocks)
-        return BsrHierarchy(levels=tuple(levels), coarse_inv=inv)
 
     def _coarse_inverse(self, nc, w, ell_indices, blocks):
         r3 = (
@@ -663,8 +319,6 @@ class BsrRefreshableSolver:
 
     def _refresh_impl(self, state, B0_vals: jnp.ndarray,
                       lam_in=None) -> BsrHierarchy:
-        if self.chain is not None:
-            return self._refresh_well(state, B0_vals, lam_in)
         plan = state["plan"]
         plans = [plan.lvl0, *plan.levels]
         levels_vals = refresh_block_values(plan, B0_vals.astype(self.dtype))
@@ -690,11 +344,6 @@ class BsrRefreshableSolver:
         return BsrHierarchy(levels=tuple(levels), coarse_inv=inv)
 
     def _solve_impl(self, state, B0_vals, rhs, z0, tol, max_iter: int):
-        if "nnz_perm" in state:
-            # public path: caller's values are in the ORIGINAL pattern's
-            # canonical order; the stepper assembles directly in kernel
-            # order and calls _refresh_impl instead
-            B0_vals = B0_vals[state["nnz_perm"]]
         hier = self._refresh_impl(state, B0_vals)
         return bsr_solve_loop(hier, rhs, z0, tol, max_iter, self.cfg)
 
@@ -710,9 +359,6 @@ class BsrRefreshableSolver:
             if z0 is None
             else np.asarray(z0, dtype=np.float64).reshape(nv, 3)
         )
-        if self.vperm is not None:
-            rhs2 = rhs2[self.vperm]
-            z02 = z02[self.vperm]
         z, r_his, k = self._solve(
             self._state, jnp.asarray(B0_vals),
             jnp.asarray(rhs2, dtype=self.dtype),
@@ -722,10 +368,6 @@ class BsrRefreshableSolver:
         k = int(k)
         r_list = [float(r) for r in np.asarray(r_his)[:k]]
         z = np.asarray(z, dtype=np.float64)
-        if self.vperm is not None:
-            z_out = np.empty_like(z)
-            z_out[self.vperm] = z
-            z = z_out
         return (
             z.reshape(3 * nv),
             r_list,

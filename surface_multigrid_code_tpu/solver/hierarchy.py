@@ -203,16 +203,14 @@ def extend_hierarchy(
     applying the reference level-count rule (src/mg_precompute.cpp:27-40)
     from the current coarsest mesh downward.
 
-    TPU-native rationale: the reference stops at >500 coarsest vertices
-    because its coarse direct solve (SimplicialLDLT,
-    src/min_quad_with_fixed_mg.cpp:236-256) is cheap on CPU.  On TPU the
-    per-refresh dense Cholesky INVERSE of the coarsest operator is the
-    single most expensive refresh component (4.2 ms at 3nc=2964, round-2
-    measurement), so steppers that refresh every Newton iteration push
-    the hierarchy deeper: two more levels cut the bunny_15K balloon step
-    from 386 to 288 ms/step with end-state parity to ~1e-6 rel
-    (round 5, probe_step_time.py).  Returns a NEW list; `mg` is not
-    mutated and its level records are shared."""
+    Rationale: the reference stops at >500 coarsest vertices because its
+    coarse direct solve (SimplicialLDLT,
+    src/min_quad_with_fixed_mg.cpp:236-256) is cheap on CPU.  The device
+    steppers instead pay a dense Cholesky INVERSE of the coarsest
+    operator on every refresh, so a stepper that refreshes every Newton
+    iteration may push the hierarchy deeper (BsrBalloonStepper's
+    coarsest_nv).  Returns a NEW list; `mg` is not mutated and its level
+    records are shared."""
     out = list(mg)
     # continue with the strategy the hierarchy itself was built with
     # (recorded on its levels by mg_precompute); hand-built hierarchies

@@ -3,7 +3,7 @@
 The reference smoother is sequential in-place forward Gauss-Seidel
 (src/mg_VCycle.cpp:146-177: for each row in order, u[i] = (b[i] -
 sum_offdiag)/diag[i]), which is inherently serial and therefore not the
-TPU smoother (we use multicolor-GS / Chebyshev / Jacobi — DESIGN.md
+device smoother (we use multicolor-GS / Chebyshev / Jacobi — DESIGN.md
 "Smoothers").  SURVEY.md §7 hard part 3 requires the divergence to be
 *adjudicated*: this module reproduces the reference V-cycle bit-for-bit
 in semantics (2 pre + 2 post sequential-GS sweeps, src/

@@ -59,10 +59,6 @@ class MQWFData:
     # finest operator in f64 for mixed-precision iterative refinement
     # (built when the hierarchy dtype is f32 and x64 is available)
     A64: object | None = None
-    # RCM-class row ordering of the reduced system when the hierarchy was
-    # built for the windowed Pallas kernel (solver/ordering.py); vectors
-    # are permuted at this host boundary, so callers never see it.
-    perm: np.ndarray | None = None
 
 
 def _default_dtype():
@@ -78,15 +74,8 @@ def min_quad_with_fixed_mg_precompute(
     cfg: SolveConfig = SolveConfig(),
     dtype=None,
     colorings: list[np.ndarray] | None = None,
-    well: bool | None = None,
 ) -> MQWFData:
     """Precompute solver data. `known=None` or empty = unconstrained overload.
-
-    well: route every V-cycle SpMV through the windowed Pallas kernel
-    (ops/well.py) after RCM-ordering the hierarchy (solver/ordering.py).
-    None = auto: on for Jacobi/Chebyshev smoothing on an accelerator
-    backend, off on CPU (where the kernel would run interpreted) and for
-    multicolor GS (whose per-color row gathers use the ELL layout).
     """
     dtype = dtype or _default_dtype()
     A = A.tocsr().astype(np.float64)
@@ -161,39 +150,10 @@ def min_quad_with_fixed_mg_precompute(
 
     import jax
 
-    if well is None:
-        well = jax.default_backend() != "cpu"
-
     As = [lvl.A for lvl in mg]
     Ps = [mg[lv].P for lv in range(1, len(mg))]
-    perm = None
-    dev_colorings = colorings
-    if well:
-        from surface_multigrid_code_tpu.solver.ordering import (
-            finest_rcm,
-            induced_orderings,
-            permute_hierarchy,
-        )
-
-        perms = induced_orderings(finest_rcm(As[0]), Ps)
-        As, Ps = permute_hierarchy(As, Ps, perms)
-        perm = perms[0]
-        if colorings is not None:
-            # colorings were computed on the UNPERMUTED levels (and are
-            # cached across refreshes in that order); carry the same
-            # color assignment into permuted row order so the GS
-            # trajectory is permutation-invariant
-            dev_colorings = [
-                c[p] for c, p in zip(colorings, perms)
-            ]
-
     hier = build_device_hierarchy(
-        As,
-        Ps,
-        cfg=cfg,
-        dtype=dtype,
-        colorings=dev_colorings,
-        well=well,
+        As, Ps, cfg=cfg, dtype=dtype, colorings=colorings
     )
 
     # Mixed-precision support (DESIGN.md "Precision policy"): keep the
@@ -217,7 +177,6 @@ def min_quad_with_fixed_mg_precompute(
         dtype=dtype,
         colorings=colorings,
         A64=A64,
-        perm=perm,
     )
 
 
@@ -261,10 +220,6 @@ def min_quad_with_fixed_mg_solve(
         rhs_u = RHS
         z_u = z0
 
-    if data.perm is not None:
-        rhs_u = rhs_u[data.perm]
-        z_u = z_u[data.perm]
-
     from surface_multigrid_code_tpu.utils.profiler import profile_region
 
     if refine is None:
@@ -298,10 +253,6 @@ def min_quad_with_fixed_mg_solve(
             )
         z_dev.block_until_ready()
     z_u = np.asarray(z_dev, dtype=np.float64)
-    if data.perm is not None:
-        z_nat = np.empty_like(z_u)
-        z_nat[data.perm] = z_u
-        z_u = z_nat
     k = int(k)
     r_his = [float(r) for r in np.asarray(r_his_dev)[:k]]
     converged = bool(r_his and r_his[-1] <= tolerance)

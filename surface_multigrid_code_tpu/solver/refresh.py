@@ -20,8 +20,6 @@ inverse in build_device_hierarchy.
 
 from __future__ import annotations
 
-import warnings
-
 import numpy as np
 import scipy.sparse as sp
 
@@ -34,7 +32,11 @@ from surface_multigrid_code_tpu.ops.smoothers import (
     greedy_coloring,
     group_scales,
 )
-from surface_multigrid_code_tpu.ops.sparse import ELLMatrix, ell_from_csr
+from surface_multigrid_code_tpu.ops.sparse import (
+    HIGHEST,
+    ELLMatrix,
+    ell_from_csr,
+)
 from surface_multigrid_code_tpu.solver.galerkin import (
     GalerkinPlan,
     build_galerkin_plan,
@@ -64,14 +66,9 @@ class RefreshableMGSolver:
         dtype=jnp.float32,
         coarsest_shift: float = 1e-12,
         prune_threshold: float = 1e-15,
-        well: bool | None = None,
-        chain: bool | None = None,
     ):
         self.cfg = cfg or SolveConfig(smoother=SmootherType.JACOBI)
         self.dtype = dtype
-        if well is None:
-            well = jax.default_backend() != "cpu"
-        self.well = bool(well)
         A0 = A0_pattern.tocsr().copy()
         A0.sum_duplicates()
         self.A0_full_pattern = A0
@@ -123,135 +120,16 @@ class RefreshableMGSolver:
             self._uk_shape = (Auk.shape[0], width)
             self._uk_indices = jnp.asarray(ind_uk)
             A0 = Auu
-        # Windowed-kernel ordering (solver/ordering.py): permute the whole
-        # reduced hierarchy, then make the permutation FREE at refresh time
-        # by composing its nnz map into the gathers that already read the
-        # finest value vector (plan.lvl0 / level-1 contraction for the
-        # unconstrained path; uu_map for the constrained one).
-        self.perm = None
-        val_map = None
-        if self.well:
-            from surface_multigrid_code_tpu.solver.ordering import (
-                finest_rcm,
-                induced_orderings,
-                nnz_permutation_map,
-                permute_hierarchy,
-            )
-
-            perms = induced_orderings(finest_rcm(A0), Ps)
-            val_map = nnz_permutation_map(A0, perms[0])
-            (A0_list, Ps) = permute_hierarchy([A0], Ps, perms)
-            A0 = A0_list[0]
-            self.perm = perms[0]
-            if self.known.size:
-                # the constraint fold scatters into unknown-row positions;
-                # remap them so the fold lands directly in permuted order
-                rank = np.empty(self.perm.shape[0], dtype=np.int64)
-                rank[self.perm] = np.arange(self.perm.shape[0])
-                self._uk_rows = jnp.asarray(
-                    rank[np.asarray(self._uk_rows)]
-                )
         self.A0_pattern = A0
         self.plan: GalerkinPlan = build_galerkin_plan(A0, Ps)
-        self._chain = None
-        self.refresh_fallback_reason = None
-        if self.well and self.known.size:
-            # constrained: route the permutation through the existing
-            # full->Auu gather
-            self._uu_map = jnp.asarray(np.asarray(self._uu_map)[val_map])
-        elif self.well:
-            # unconstrained: rewrite the plan arrays that index finest nnz
-            # (sentinel id nnz maps to itself)
-            nnz = A0.nnz
-            vm = np.append(val_map, nnz)
-            l0 = self.plan.lvl0
-            new_l0 = _replace_plan_gathers(
-                l0,
-                ell_gather=jnp.asarray(
-                    vm[np.asarray(l0.ell_gather)].astype(np.int32)
-                ),
-                diag_idx=jnp.asarray(val_map[np.asarray(l0.diag_idx)]),
-            )
-            new_levels = list(self.plan.levels)
-            if new_levels:
-                lv1 = new_levels[0]
-                new_levels[0] = _replace_plan_gathers(
-                    lv1,
-                    gat_idx=jnp.asarray(
-                        vm[np.asarray(lv1.gat_idx)].astype(np.int32)
-                    ),
-                    tail_idx=jnp.asarray(vm[np.asarray(lv1.tail_idx)]),
-                )
-            self.plan = GalerkinPlan(levels=tuple(new_levels), lvl0=new_l0)
-            # windowed value chain (solver/wellrefresh.py): the Galerkin
-            # contraction itself runs as banded slot-space kernel SpMVs
-            # instead of XLA's serial per-element gathers — the same
-            # rebuild the BSR balloon solver uses. Values enter in the
-            # ORIGINAL canonical order via one device gather (val_map).
-            # Off-CPU only by default: the chain is a TPU optimization
-            # (XLA:CPU gathers are fast, and interpret-mode Pallas chains
-            # are orders of magnitude slower in tests); chain=True forces
-            # it (coverage tests do).
-            if chain is None:
-                chain = jax.default_backend() != "cpu"
-            if chain:
-                from surface_multigrid_code_tpu.solver.wellrefresh import (
-                    ChainTooWide,
-                    WellRefreshChain,
-                )
-
-                try:
-                    self._chain = WellRefreshChain(A0, Ps, dtype=dtype)
-                    self._val_map = jnp.asarray(val_map)
-                except ChainTooWide as e:
-                    # boundary-heavy hierarchies can need 100s of kernel
-                    # groups (minutes of Mosaic compile EACH); the plan
-                    # gathers stay the refresh path there.  Loud: the
-                    # fallback refresh is ~12x slower per application
-                    # step (MCF_STEP_r3.json), so the downgrade is
-                    # surfaced per SURVEY §5.3 soft-failure discipline.
-                    self._chain = None
-                    self.refresh_fallback_reason = str(e)
-                    warnings.warn(
-                        "windowed refresh chain unavailable for this "
-                        f"hierarchy ({e}); falling back to the XLA "
-                        "plan-gather value refresh (slower per refresh)",
-                        RuntimeWarning,
-                        stacklevel=2,
-                    )
-        # which value-refresh path this hierarchy actually got (SURVEY
-        # §5.3 soft-failure reporting): "chain" = windowed slot-space
-        # kernel chain, "plan-gather" = XLA gather plan (CPU runs, the
-        # constrained path, or a ChainTooWide fallback — see
-        # refresh_fallback_reason)
-        self.refresh_backend = (
-            "chain" if self._chain is not None else "plan-gather"
-        )
         self.P_ell = [ell_from_csr(P, dtype=dtype) for P in Ps]
         self.PT_ell = [ell_from_csr(P.T.tocsr(), dtype=dtype) for P in Ps]
-        if self.well:
-            from surface_multigrid_code_tpu.ops.well import build_well_auto
-            from surface_multigrid_code_tpu.solver.galerkin import plan_pattern
-
-            # tap-recentered windows everywhere: tap-group splitting keeps
-            # slots in canonical order, so the A-level value refresh stays
-            # a pure reshape (well_repack_tap) while the select chain runs
-            # per-tap spans instead of whole-block spans
-            pats = [A0] + [plan_pattern(pl_) for pl_ in self.plan.levels]
-            self.well_layouts = [
-                build_well_auto(p, dtype=dtype) for p in pats
-            ]
-            self.P_well = [build_well_auto(P, dtype=dtype) for P in Ps]
-            self.PT_well = [
-                build_well_auto(P.T.tocsr(), dtype=dtype) for P in Ps
-            ]
         self.coarsest_shift = float(coarsest_shift)
 
         # static per-level metadata
         self._plans = [self.plan.lvl0, *self.plan.levels]
         self._groups = []
         self._group_scales = []
-        self._group_masks = []
         if self.cfg.smoother == SmootherType.MULTICOLOR_GS:
             from surface_multigrid_code_tpu.solver.galerkin import plan_pattern
 
@@ -265,14 +143,6 @@ class RefreshableMGSolver:
                 self._group_scales.append(
                     tuple(jnp.asarray(s, dtype=dtype) for s in group_scales(gs))
                 )
-                if self.well:
-                    # full-length 0/1 masks for the windowed-kernel GS
-                    masks = []
-                    for g in gs:
-                        m = np.zeros(pat.shape[0], dtype=np.float64)
-                        m[g] = 1.0
-                        masks.append(jnp.asarray(m, dtype=dtype))
-                    self._group_masks.append(tuple(masks))
 
         # ALL device arrays travel as jit ARGUMENTS via this pytree —
         # closure-capturing them would embed multi-MB (balloon: multi-100MB)
@@ -283,18 +153,7 @@ class RefreshableMGSolver:
             "PT_ell": tuple(self.PT_ell),
             "groups": tuple(self._groups),
             "group_scales": tuple(self._group_scales),
-            "group_masks": tuple(self._group_masks),
         }
-        if self.well:
-            self._state.update(
-                well_layouts=tuple(self.well_layouts),
-                P_well=tuple(self.P_well),
-                PT_well=tuple(self.PT_well),
-            )
-        if self._chain is not None:
-            self._state.update(
-                chain=self._chain.state(), val_map=self._val_map
-            )
         if self.known.size:
             self._state.update(
                 uu_map=self._uu_map,
@@ -319,29 +178,11 @@ class RefreshableMGSolver:
         """lam_in: optional per-level Chebyshev lam_max overrides (tuple,
         finest first, None entries computed on device).  Hot loops whose
         operator drifts slowly (balloon Newton iterations) hoist the power
-        iteration out of the per-refresh cost — measured 0.24 s of a 0.52 s
-        refresh on bunny_15K — and pass slightly inflated values from a
-        prologue refresh instead."""
+        iteration out of the per-refresh cost and pass slightly inflated
+        values from a prologue refresh instead."""
         plan = state["plan"]
         plans = [plan.lvl0, *plan.levels]
-        if "chain" in state:
-            # windowed slot-space value chain (solver/wellrefresh.py):
-            # the Galerkin contraction runs as banded kernel SpMVs, not
-            # XLA's serial per-element gathers. One device gather maps
-            # the caller's ORIGINAL canonical nnz order into the
-            # kernel's permuted order.
-            vperm = A0_vals.astype(self.dtype)[state["val_map"]]
-            planes = self._chain.apply_planes(
-                state["chain"], vperm[None, :]
-            )
-            levels_vals = []
-            for lv, y in enumerate(planes):
-                n, w = self._chain.ell_shapes[lv]
-                data = y[0].reshape(n, w)
-                diag = y[0][state["chain"]["diag_slots"][lv]]
-                levels_vals.append((data, diag))
-        else:
-            levels_vals = refresh_values(plan, A0_vals.astype(self.dtype))
+        levels_vals = refresh_values(plan, A0_vals.astype(self.dtype))
         levels = []
         L = len(plans)
         groups = state["groups"]
@@ -349,16 +190,6 @@ class RefreshableMGSolver:
         for lv, (pl_, (data, diag)) in enumerate(zip(plans, levels_vals)):
             n, w = pl_.ell_shape
             ell = ELLMatrix(indices=pl_.ell_indices, data=data, n_cols=n)
-            Aw = Pw = PTw = None
-            if self.well:
-                from surface_multigrid_code_tpu.ops.well import (
-                    well_repack_tap,
-                )
-
-                Aw = well_repack_tap(state["well_layouts"][lv], data)
-                if lv > 0:
-                    Pw = state["P_well"][lv - 1]
-                    PTw = state["PT_well"][lv - 1]
             lam_max = None
             if self.cfg.smoother == SmootherType.CHEBYSHEV and lv < L - 1:
                 if lam_in is not None and lam_in[lv] is not None:
@@ -366,10 +197,9 @@ class RefreshableMGSolver:
                 else:
                     # power iteration + 10% margin; the certified-safe
                     # Gershgorin bound widens the Chebyshev window enough
-                    # to cost ~2x the V-cycles (measured,
-                    # probe_balloon_profile_r3.py) — the divergence it
-                    # would prevent is removed at the source by the
-                    # per-face PSD projection (models/shell.py)
+                    # to cost more V-cycles — the divergence it would
+                    # prevent is removed at the source by the per-face
+                    # PSD projection (models/shell.py)
                     lam_max = _device_lam_max(ell, diag)
             levels.append(
                 DeviceLevel(
@@ -384,14 +214,6 @@ class RefreshableMGSolver:
                         else ()
                     ),
                     lam_max=lam_max,
-                    group_mask=(
-                        state["group_masks"][lv]
-                        if state["group_masks"] and lv < L - 1
-                        else ()
-                    ),
-                    Aw=Aw,
-                    Pw=Pw,
-                    PTw=PTw,
                 )
             )
         # dense coarsest + Cholesky inverse (device; SPD assumed)
@@ -424,7 +246,9 @@ class RefreshableMGSolver:
         if kv.ndim == 1:
             fold = (uk_data * gathered).sum(axis=1)
         else:
-            fold = jnp.einsum("nw,nwr->nr", uk_data, gathered)
+            fold = jnp.einsum(
+                "nw,nwr->nr", uk_data, gathered, precision=HIGHEST
+            )
         return solve_loop(
             self._refresh_impl(state, vals_uu), rhs_u - fold, z0_u, tol,
             max_iter, self.cfg,
@@ -460,9 +284,6 @@ class RefreshableMGSolver:
                 if z0 is None
                 else np.asarray(z0, dtype=np.float64)[self.unknown]
             )
-            if self.perm is not None:
-                rhs_u = rhs_u[self.perm]
-                z0_u = z0_u[self.perm]
             with profile_region("MG: refresh+solve", trace=True):
                 z_u, r_his, k = self._solve_k(
                     self._state,
@@ -475,18 +296,10 @@ class RefreshableMGSolver:
                 )
                 z_u.block_until_ready()
             z_u = np.asarray(z_u, dtype=np.float64)
-            if self.perm is not None:
-                z_nat = np.empty_like(z_u)
-                z_nat[self.perm] = z_u
-                z_u = z_nat
             z = np.empty_like(rhs)
             z[self.unknown] = z_u
             z[self.known] = kv
         else:
-            if self.perm is not None:
-                rhs = rhs[self.perm]
-                if z0 is not None:
-                    z0 = np.asarray(z0, dtype=np.float64)[self.perm]
             rhs_d = jnp.asarray(rhs, dtype=self.dtype)
             z0_d = (
                 jnp.zeros_like(rhs_d)
@@ -504,22 +317,10 @@ class RefreshableMGSolver:
                 )
                 z.block_until_ready()
             z = np.asarray(z, dtype=np.float64)
-            if self.perm is not None:
-                z_nat = np.empty_like(z)
-                z_nat[self.perm] = z
-                z = z_nat
         k = int(k)
         r_list = [float(r) for r in np.asarray(r_his)[:k]]
         converged = bool(r_list and r_list[-1] <= tolerance)
         return z, r_list, converged
-
-
-def _replace_plan_gathers(plan, **kw):
-    """dataclasses.replace for LevelPlan (rewrite finest-nnz gather arrays
-    when composing an ordering's nnz permutation into the plan)."""
-    import dataclasses
-
-    return dataclasses.replace(plan, **kw)
 
 
 def _submatrix_nnz_map(

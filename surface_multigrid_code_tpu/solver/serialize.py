@@ -2,20 +2,17 @@
 
 The reference's only persisted precompute is the collapse log (the SSP
 hierarchy, mirrored by `hierarchy.save_hierarchy`); everything downstream
-is rebuilt per process.  On this TPU the downstream build is NOT free —
-windowed-layout staging + upload is ~28 s at icosphere-9 scale
-(benchmarks/BUILD_BREAKDOWN_r3.json) and every refresh-chain plan is a
-deterministic function of the hierarchy — so the device containers are
-serializable too: `save_device_hierarchy` / `load_device_hierarchy`
-round-trip a solver's `DeviceHierarchy` (windowed Pallas layouts, ELL
-fallbacks, diagonals, Chebyshev bounds, dense coarse inverse) through a
-single .npz.
+is rebuilt per process.  The downstream build is not free at
+icosphere-9 scale, and every device layout is a deterministic function of
+the hierarchy — so the device containers are serializable too:
+`save_device_hierarchy` / `load_device_hierarchy` round-trip a solver's
+`DeviceHierarchy` (ELL operators, diagonals, Chebyshev bounds, dense
+coarse inverse) through a single .npz.
 
 The encoder walks the closed set of framework containers via their
 pytree (children, aux) contract — aux is JSON-serializable by
 construction — so any nested structure of {DeviceHierarchy, DeviceLevel,
-WellMatrix, ELLMatrix, BSRMatrix, dict, tuple/list, ndarray, scalars,
-None} can be persisted (`save_pytree` / `load_pytree`)."""
+ELLMatrix, BSRMatrix, dict, tuple/list, ndarray, scalars, None} can be persisted (`save_pytree` / `load_pytree`)."""
 
 from __future__ import annotations
 
@@ -28,7 +25,6 @@ import jax.numpy as jnp
 
 def _registry():
     from surface_multigrid_code_tpu.ops.sparse import ELLMatrix
-    from surface_multigrid_code_tpu.ops.well import WellMatrix
     from surface_multigrid_code_tpu.solver.vcycle import (
         DeviceHierarchy,
         DeviceLevel,
@@ -37,7 +33,6 @@ def _registry():
 
     return {
         "ELLMatrix": ELLMatrix,
-        "WellMatrix": WellMatrix,
         "DeviceLevel": DeviceLevel,
         "DeviceHierarchy": DeviceHierarchy,
         "BSRMatrix": BSRMatrix,
@@ -143,8 +138,8 @@ def load_pytree(path):
 
 
 def save_device_hierarchy(path, hier) -> None:
-    """Serialize a solver DeviceHierarchy (windowed layouts + ELL
-    fallbacks + diagonals + lam_max + dense coarse inverse).  A second
+    """Serialize a solver DeviceHierarchy (ELL operators + diagonals +
+    lam_max + dense coarse inverse).  A second
     process on the same mesh skips the whole host staging pass
     (load = one npz read + device uploads)."""
     save_pytree(path, hier)

@@ -2,7 +2,7 @@
 
 The greedy SSP collapse loop (reference src/SSP_midpoint.cpp:119-245,
 src/SSP_collapse_edge.cpp) is inherently sequential host code with dynamic
-topology — the wrong shape for TPU — so, like the reference, it lives in
+topology — the wrong shape for a data-parallel device — so, like the reference, it lives in
 native code (C++, `native/ssp.cpp`) and emits flat arrays the device side
 consumes.  The library is compiled on demand with g++ (no external deps —
 the tiny dense solves are hand-rolled) and cached next to the sources.

@@ -1,18 +1,17 @@
 """Host allocator pooling for large-array precompute stages.
 
-The host precompute path (SSP log marshalling, ELL/windowed staging,
+The host precompute path (SSP log marshalling, ELL staging,
 Galerkin pattern builds) allocates and frees many multi-hundred-MB NumPy
 temporaries. glibc serves those via mmap and returns the pages to the
 kernel on free, so EVERY temporary pays first-touch page-fault cost.
 On the sandboxed kernels this framework targets, that cost is extreme
-(measured here: np.arange of 17.7M elements costs 7-16 s freshly mapped
-vs 0.02 s from pooled pages — a ~400x difference; see
-benchmarks/probes/probe_hbm_head.py history). Keeping freed pages in the
+(np.arange of 17.7M elements has cost seconds freshly mapped against
+hundredths of a second from pooled pages). Keeping freed pages in the
 process heap makes the cost a one-time warmup.
 
 The reference implementation never hits this because Eigen's workspaces
 live for the whole decimation (src/SSP_midpoint.cpp keeps V/F/E buffers
-across all collapses); our staged array pipeline is the TPU-native
+across all collapses); our staged array pipeline is the device-side
 analog, so we restore the same "allocate once" economics at the
 allocator level.
 

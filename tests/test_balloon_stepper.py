@@ -126,9 +126,8 @@ def test_bsr_stepper_long_horizon_finite():
     r4 item 3; 06_example_balloon_sim/main.cpp:69-140 runs the demo
     indefinitely): 25 implicit-Euler steps at ex06-scaled pressure must
     stay finite with a physical (inflating, then settling) displacement
-    profile and no silent state corruption.  The real-chip bunny_15K
-    artifact is benchmarks/BALLOON_TRAJ_r5.json; this is the CPU-scale
-    guard of the same invariants."""
+    profile and no silent state corruption.  This is the CPU-scale guard
+    of the invariants the bunny_15K run keeps on the accelerator."""
     import numpy as np
     import jax.numpy as jnp
     from surface_multigrid_code_tpu.models.balloon import (
@@ -172,8 +171,7 @@ def test_bsr_stepper_long_horizon_finite():
 
 def test_extend_hierarchy_deepens_and_matches():
     """extend_hierarchy continues the reference level rule below the
-    given coarsest (TPU-native coarse-solve depth; the stepper's
-    coarsest_nv knob routes through it) without perturbing the original
+    given coarsest (the stepper's coarsest_nv knob routes through it) without perturbing the original
     levels, and the deepened stepper reproduces the default-depth
     trajectory to solver tolerance."""
     import numpy as np

@@ -5,7 +5,6 @@ import scipy.sparse as sp
 
 import jax.numpy as jnp
 
-from surface_multigrid_code_tpu.config import SolveConfig, SmootherType
 from surface_multigrid_code_tpu.models.balloon import (
     BalloonNewtonSolver,
     BsrBalloonStepper,
@@ -15,11 +14,7 @@ from surface_multigrid_code_tpu.models.balloon import (
 )
 from surface_multigrid_code_tpu.models.shell import ShellEnergy, lame_parameters
 from surface_multigrid_code_tpu.ops.laplacian import massmatrix
-from surface_multigrid_code_tpu.solver.bsr import (
-    BSRMatrix,
-    BsrRefreshableSolver,
-    bsr_spmv,
-)
+from surface_multigrid_code_tpu.solver.bsr import BSRMatrix, bsr_spmv
 from surface_multigrid_code_tpu.solver.hierarchy import (
     mg_precompute,
     mg_precompute_block,
@@ -120,80 +115,3 @@ def test_bsr_stepper_stiff_bending():
     p, q = s.step(V.copy(), np.zeros(3 * V.shape[0]), fExt)
     assert np.isfinite(p).all() and np.isfinite(q).all()
     assert np.abs(p - V).max() > 0
-
-
-def test_bsr_well_refresh_matches_gather_refresh():
-    """well=True routes the Galerkin value refresh through the windowed
-    Pallas kernel chain (solver/wellrefresh.py) on a permuted hierarchy;
-    solutions must match the gather-plan path to machine precision
-    (residual norms differ only by permuted-Cholesky rounding)."""
-    V, F, shell, M, fExt = setup()
-    mg_v = mg_precompute(V, F, min_coarsest_nv=60, verbose=False)
-    nv = V.shape[0]
-    rows = np.concatenate(
-        [np.repeat(F, 3, axis=1).reshape(-1), np.arange(nv)])
-    cols = np.concatenate([np.tile(F, (1, 3)).reshape(-1), np.arange(nv)])
-    pattern = sp.coo_matrix(
-        (np.ones(rows.shape[0]), (rows, cols)), shape=(nv, nv)
-    ).tocsr()
-    pattern.sum_duplicates()
-    rng = np.random.default_rng(0)
-    coo = pattern.tocoo()
-    vals = rng.standard_normal((pattern.nnz, 3, 3)) * 0.1
-    pos = {(i, j): k for k, (i, j) in enumerate(zip(coo.row, coo.col))}
-    for k, (i, j) in enumerate(zip(coo.row, coo.col)):
-        if i < j:
-            vals[pos[(j, i)]] = vals[k].T
-        if i == j:
-            vals[k] = 0.5 * (vals[k] + vals[k].T) + 10 * np.eye(3)
-    rhs = rng.standard_normal(3 * nv)
-    cfg = SolveConfig(smoother=SmootherType.JACOBI)
-    s0 = BsrRefreshableSolver(mg_v, pattern, cfg=cfg, dtype=jnp.float64,
-                              well=False)
-    s1 = BsrRefreshableSolver(mg_v, pattern, cfg=cfg, dtype=jnp.float64,
-                              well=True)
-    z0, r0, ok0 = s0.solve(vals, rhs, tolerance=1e-10, max_iter=40)
-    z1, r1, ok1 = s1.solve(vals, rhs, tolerance=1e-10, max_iter=40)
-    assert ok0 and ok1 and len(r0) == len(r1)
-    np.testing.assert_allclose(z1, z0, rtol=0, atol=1e-12)
-
-
-def test_bsr_stepper_well_matches_gather():
-    """Full implicit-Euler step: well-refresh stepper (assembles directly
-    in the kernel's permuted ordering) vs the gather stepper."""
-    V, F, shell, M, fExt = setup(bending=True)
-    mg_v = mg_precompute(V, F, min_coarsest_nv=60, verbose=False)
-    qd0 = np.zeros(3 * V.shape[0])
-    s0 = BsrBalloonStepper(shell, M, mg_v, 1e-3, n_newton=2, well=False,
-                           dtype=jnp.float64)
-    s1 = BsrBalloonStepper(shell, M, mg_v, 1e-3, n_newton=2, well=True,
-                           dtype=jnp.float64)
-    p0, q0 = s0.step(V.copy(), qd0, fExt)
-    p1, q1 = s1.step(V.copy(), qd0, fExt)
-    np.testing.assert_allclose(np.asarray(p1), np.asarray(p0),
-                               rtol=0, atol=1e-12)
-    np.testing.assert_allclose(np.asarray(q1), np.asarray(q0),
-                               rtol=0, atol=1e-9)
-
-
-def test_bsr_stepper_incidence_assembly_matches_gather():
-    """Stretching-only well stepper routes assembly through the windowed
-    incidence-SpMV (models/balloon.py asm_Ws: all-ones operator, 9 block
-    components as planes); the step must match the ELL-gather assembly
-    of the well=False stepper to f64 rounding (summation orders differ:
-    window accumulation + face reordering vs ELL + sorted tail)."""
-    V, F, shell, M, fExt = setup()  # bending=False
-    mg_v = mg_precompute(V, F, min_coarsest_nv=60, verbose=False)
-    qd0 = np.zeros(3 * V.shape[0])
-    s0 = BsrBalloonStepper(shell, M, mg_v, 1e-3, n_newton=2, well=False,
-                           dtype=jnp.float64)
-    s1 = BsrBalloonStepper(shell, M, mg_v, 1e-3, n_newton=2, well=True,
-                           dtype=jnp.float64)
-    assert s1._asm_well is not None  # incidence path actually active
-    assert s0._asm_well is None
-    p0, q0 = s0.step(V.copy(), qd0, fExt)
-    p1, q1 = s1.step(V.copy(), qd0, fExt)
-    np.testing.assert_allclose(np.asarray(p1), np.asarray(p0),
-                               rtol=0, atol=1e-11)
-    np.testing.assert_allclose(np.asarray(q1), np.asarray(q0),
-                               rtol=0, atol=1e-8)

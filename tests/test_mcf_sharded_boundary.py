@@ -5,9 +5,7 @@ subdivision prolongations; this runs the real SSP pipeline on ogre_sim
 (2,612 V / 5,072 F, 150 boundary vertices — the decimated companion of
 the reference's own constrained-solve mesh, 03_mg_solver/main.cpp:29)
 through ShardedMCFStepper on the faked 8-device mesh and asserts the
-residual histories match the single-device stepper digit-for-digit on
-both sharded backends (windowed band-segment halos and the ELL publish-
-slot reference path).
+residual histories match the single-device stepper digit-for-digit.
 """
 
 import numpy as np
@@ -41,14 +39,10 @@ def ogre_sim_setup():
     return V, F, mg, cfg, U, r_his
 
 
-@pytest.mark.parametrize("backend", ["well", "halo"])
-def test_sharded_boundary_mcf_matches_single_device(
-    ogre_sim_setup, backend
-):
+def test_sharded_boundary_mcf_matches_single_device(ogre_sim_setup):
     V, F, mg, cfg, U1, r1 = ogre_sim_setup
     sharded = ShardedMCFStepper(
         V, F, mg, make_row_mesh(4), cfg=cfg, dtype=jnp.float64,
-        backend=backend,
     )
     U4, r4, ok4 = sharded.step(V.copy())
     assert ok4, r4

@@ -95,7 +95,7 @@ def test_heavy_constraint_pruning():
 
 
 def test_iterative_refinement_f32_reaches_f64_tolerances():
-    # the TPU precision policy (DESIGN.md): f32 V-cycle hierarchy + f64
+    # the mixed precision policy (DESIGN.md): f32 V-cycle hierarchy + f64
     # defect correction must reach tolerances far below the f32 floor
     import jax.numpy as jnp
 

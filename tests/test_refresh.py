@@ -60,139 +60,3 @@ def test_refresh_matches_full_precompute(setup):
         assert len(r1) == len(r2)
         np.testing.assert_allclose(r1, r2, rtol=1e-6)
         np.testing.assert_allclose(z1, z2, rtol=1e-6, atol=1e-10)
-
-
-def test_refresh_chain_matches_plan_gathers():
-    """The windowed slot-space value chain (solver/wellrefresh.py routed
-    through RefreshableMGSolver(chain=True)) must produce the same
-    refreshed hierarchy values as the plan-gather path — small forced
-    case; the chain is otherwise TPU-only (interpret-mode Pallas is too
-    slow for routine CPU tests)."""
-    import numpy as np
-    import jax.numpy as jnp
-    from surface_multigrid_code_tpu.config import SolveConfig, SmootherType
-    from surface_multigrid_code_tpu.ops.laplacian import cotmatrix, massmatrix
-    from surface_multigrid_code_tpu.solver.hierarchy import mg_precompute
-    from surface_multigrid_code_tpu.solver.refresh import RefreshableMGSolver
-    from surface_multigrid_code_tpu.utils.synthetic import icosphere
-
-    V, F = icosphere(2)
-    mg = mg_precompute(V, F, min_coarsest_nv=40, verbose=False)
-    A = (massmatrix(V, F) - 0.01 * cotmatrix(V, F)).tocsr()
-    A.sum_duplicates()
-    A.sort_indices()
-    cfg = SolveConfig(smoother=SmootherType.JACOBI)
-    s0 = RefreshableMGSolver(mg, A, cfg=cfg, dtype=jnp.float64, well=True,
-                             chain=False)
-    s1 = RefreshableMGSolver(mg, A, cfg=cfg, dtype=jnp.float64, well=True,
-                             chain=True)
-    A2 = (2.0 * massmatrix(V, F) - 0.005 * cotmatrix(V, F)).tocsr()
-    A2.sum_duplicates()
-    A2.sort_indices()
-    for vals in (A.data, A2.data):
-        h0 = s0._refresh_impl(s0._state, jnp.asarray(vals))
-        h1 = s1._refresh_impl(s1._state, jnp.asarray(vals))
-        for l0, l1 in zip(h0.levels, h1.levels):
-            np.testing.assert_allclose(
-                np.asarray(l1.A.data), np.asarray(l0.A.data),
-                rtol=0, atol=1e-13,
-            )
-            np.testing.assert_allclose(
-                np.asarray(l1.diag), np.asarray(l0.diag), rtol=0,
-                atol=1e-13,
-            )
-        np.testing.assert_allclose(
-            np.asarray(h1.coarse_inv), np.asarray(h0.coarse_inv),
-            rtol=1e-8,
-        )
-
-
-def test_refresh_backend_reported(setup, monkeypatch):
-    """SURVEY §5.3 soft-failure reporting: the solver exposes which
-    value-refresh path the hierarchy actually got, and a ChainTooWide
-    downgrade is loud (RuntimeWarning) with the reason recorded."""
-    import warnings
-
-    import surface_multigrid_code_tpu.solver.wellrefresh as wr
-
-    V, F, mg, L, M, rhs = setup
-    A = (M - 0.01 * L).tocsr()
-    A.sum_duplicates()
-    cfg = SolveConfig(smoother=SmootherType.JACOBI)
-
-    s_chain = RefreshableMGSolver(mg, A, cfg=cfg, dtype=jnp.float64,
-                                  well=True, chain=True)
-    assert s_chain.refresh_backend == "chain"
-    assert s_chain.refresh_fallback_reason is None
-
-    s_plan = RefreshableMGSolver(mg, A, cfg=cfg, dtype=jnp.float64,
-                                 well=True, chain=False)
-    assert s_plan.refresh_backend == "plan-gather"
-
-    # force the wide-hierarchy path: a 1-group budget always overflows
-    orig = wr.WellRefreshChain
-
-    def tiny_budget(*args, **kw):
-        kw["max_groups"] = 1
-        return orig(*args, **kw)
-
-    monkeypatch.setattr(wr, "WellRefreshChain", tiny_budget)
-    with warnings.catch_warnings(record=True) as rec:
-        warnings.simplefilter("always")
-        s_fb = RefreshableMGSolver(mg, A, cfg=cfg, dtype=jnp.float64,
-                                   well=True, chain=True)
-    assert s_fb.refresh_backend == "plan-gather"
-    assert "kernel groups" in (s_fb.refresh_fallback_reason or "")
-    assert any(
-        issubclass(w.category, RuntimeWarning)
-        and "plan-gather" in str(w.message)
-        for w in rec
-    )
-
-
-def test_chain_modes_and_extraction_match():
-    """The two-stage factored chain (default) and the wide-row-extracted
-    chain must produce the same per-level slot values as the legacy
-    one-stage chain — same linear maps, reassociated sums."""
-    import jax.numpy as jnp
-
-    from surface_multigrid_code_tpu.ops.laplacian import cotmatrix, massmatrix
-    from surface_multigrid_code_tpu.solver.hierarchy import mg_precompute
-    from surface_multigrid_code_tpu.solver.ordering import (
-        finest_rcm,
-        induced_orderings,
-        permute_hierarchy,
-    )
-    from surface_multigrid_code_tpu.solver.wellrefresh import WellRefreshChain
-    from surface_multigrid_code_tpu.utils.synthetic import icosphere
-
-    V, F = icosphere(2)
-    mg = mg_precompute(V, F, min_coarsest_nv=40, verbose=False)
-    A = (massmatrix(V, F) - 0.01 * cotmatrix(V, F)).tocsr()
-    A.sum_duplicates()
-    Ps = [mg[lv].P_full.tocsr() for lv in range(1, len(mg))]
-    perms = induced_orderings(finest_rcm(A), Ps)
-    (A,), Ps = permute_hierarchy([A], Ps, perms)
-
-    chains = {
-        "one": WellRefreshChain(A, Ps, dtype=jnp.float64, mode="one"),
-        "two": WellRefreshChain(A, Ps, dtype=jnp.float64, mode="two"),
-        # force extraction on this small mesh: a 2-sublane threshold
-        # sends a real fraction of rows to the serial side path
-        "two_x": WellRefreshChain(A, Ps, dtype=jnp.float64, mode="two",
-                                  extract_T=2),
-    }
-    assert any(
-        wide is not None
-        for level in chains["two_x"].ops for (wells, wide) in level
-    ), "extract_T=2 should have extracted at least one wide row"
-    vals = jnp.asarray(A.data)
-    outs = {
-        k: c.apply_planes(c.state(), vals[None, :]) for k, c in chains.items()
-    }
-    for k in ("two", "two_x"):
-        for lv, (ref, got) in enumerate(zip(outs["one"], outs[k])):
-            np.testing.assert_allclose(
-                np.asarray(got), np.asarray(ref), rtol=0, atol=1e-12,
-                err_msg=f"{k} lv{lv}",
-            )

@@ -1,5 +1,5 @@
 """Device build-artifact serialization round trip (VERDICT r4 item 6):
-a DeviceHierarchy (windowed Pallas layouts + diagonals + coarse inverse)
+a DeviceHierarchy (ELL operators + diagonals + coarse inverse)
 saved and reloaded must reproduce the solve bit-for-bit, and the warm
 path must skip host staging entirely."""
 
@@ -10,11 +10,6 @@ import jax.numpy as jnp
 
 from surface_multigrid_code_tpu.config import SolveConfig, SmootherType
 from surface_multigrid_code_tpu.ops.laplacian import cotmatrix, massmatrix
-from surface_multigrid_code_tpu.solver.ordering import (
-    finest_rcm,
-    induced_orderings,
-    permute_hierarchy,
-)
 from surface_multigrid_code_tpu.solver.serialize import (
     load_device_hierarchy,
     save_device_hierarchy,
@@ -40,11 +35,7 @@ def _system():
 def test_device_hierarchy_roundtrip(tmp_path):
     As, Ps, rhs = _system()
     cfg = SolveConfig(smoother=SmootherType.JACOBI)
-    perms = induced_orderings(finest_rcm(As[0]), Ps)
-    As, Ps = permute_hierarchy(As, Ps, perms)
-    rhs = rhs[perms[0]]
-    hier = build_device_hierarchy(As, Ps, cfg=cfg, dtype=jnp.float64,
-                                  well=True)
+    hier = build_device_hierarchy(As, Ps, cfg=cfg, dtype=jnp.float64)
     path = tmp_path / "hier.npz"
     save_device_hierarchy(path, hier)
     hier2 = load_device_hierarchy(path)

@@ -1,6 +1,6 @@
 """Smoother-trajectory parity adjudication (SURVEY.md §7 hard part 3).
 
-The reference smoother is sequential forward Gauss-Seidel; the TPU
+The reference smoother is sequential forward Gauss-Seidel; the device
 default is multicolor-GS.  `SequentialGSReference` reproduces the
 reference V-cycle trajectory exactly (same hierarchy, 2+2 schedule,
 prefactorized coarse solve, reference loop semantics), so we can assert
